@@ -1,0 +1,256 @@
+"""Bidirectional decode composite — kernel B4 of the port.
+
+The decoded frame is the AVERAGE of the forward and x-flipped views
+(reference: report_utils.py:412-447).  After un-mirroring, pixel p of
+that average is
+
+    out(p) = 1/2 [ sum_i a_i c_i T_i  +  sum_i a_i c_i S_i ]
+
+over the SAME alphas a_i(p) of the forward tile list, with T_i the front
+prefix product of (1 - a) and S_i the back suffix product — one alpha
+evaluation per (copy, pixel).  A front loop composites the forward view
+and accumulates the back view's suffix sum by Horner's rule
+(W <- W (1 - a) + a c); it stops at the first chunk boundary where no
+pixel of the tile keeps T >= T_EPS.  A back loop then walks from the last
+used chunk down to that stop, compositing the flip view until its
+transmittance saturates.  Dropped terms carry weight < T_EPS.
+
+``bidir_composite_attrs`` launches the CUDA kernel
+(``gsvc_tpu_torch/csrc/bidir.cu``) on CUDA tensors and runs
+``bidir_composite_plain`` — the same function in plain PyTorch, tiles
+vectorised, chunk by chunk, with the same per-tile loop stops as masks —
+on CPU tensors.  Port of ``bidir_composite_attrs`` /
+``_fwd_kernel_bidir`` (gsvc_tpu/render/pallas_splat.py:1178, :1074).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from gsvc_tpu_torch.build import load
+from gsvc_tpu_torch.render.splat import (
+    ALPHA_MAX, ALPHA_MIN, T_EPS, RasterSettings, assemble_views,
+)
+
+# kernel limits (csrc/bidir.cu): a chunk fits its shared-memory stage and
+# every thread of a block owns the same number of a tile's pixels
+MAX_CHUNK = 128
+MAX_PIXELS_PER_THREAD = 16
+BLOCK_THREADS = 256
+
+
+def _check_inputs(settings: RasterSettings, attrs, tile_lists, counts):
+    if attrs.dim() != 3 or attrs.shape[2] != 9:
+        raise ValueError(f"attrs: expected [F, M, 9], got "
+                         f"{tuple(attrs.shape)}")
+    f_n = attrs.shape[0]
+    for name, t, dtype, shape in (
+            ("attrs", attrs, torch.float32, tuple(attrs.shape)),
+            ("tile_lists", tile_lists, torch.int32,
+             (f_n, settings.n_tiles, settings.gaussian_cap)),
+            ("counts", counts, torch.int32, (f_n, settings.n_tiles))):
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != attrs.device:
+            raise ValueError(f"{name} is on {t.device}, attrs on "
+                             f"{attrs.device}")
+    if settings.gaussian_cap % settings.chunk:
+        raise ValueError("gaussian_cap must be a multiple of chunk")
+
+
+def _kernel_shape(settings: RasterSettings):
+    """(threads per block, pixels per thread) the kernel runs with."""
+    p_pix = settings.tile_h * settings.tile_w
+    threads = min(BLOCK_THREADS, p_pix)
+    ppt = p_pix // threads
+    if (settings.chunk > MAX_CHUNK or p_pix % threads
+            or ppt > MAX_PIXELS_PER_THREAD or ppt & (ppt - 1)):
+        raise ValueError(
+            f"the bidir kernel takes chunk <= {MAX_CHUNK} and tiles of "
+            f"{BLOCK_THREADS} x 2^k pixels (k <= 4); got chunk "
+            f"{settings.chunk}, tile {settings.tile_h}x{settings.tile_w}")
+    return threads, ppt
+
+
+def _lib():
+    lib = load("bidir")
+    fn = lib.bidir_composite
+    if fn.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.restype = ci
+        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
+                       ci, ctypes.c_float, vp]
+    return lib
+
+
+def bidir_out4_cuda(settings: RasterSettings, attrs, tile_lists, counts):
+    """Launch the kernel once.  Returns [F*T, 4, P] tiles: rows 0:3 the
+    fwd/flip-averaged colour (+ bg), row 3 the total transmittance."""
+    _check_inputs(settings, attrs, tile_lists, counts)
+    for name, t in (("attrs", attrs), ("tile_lists", tile_lists),
+                    ("counts", counts)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    threads, ppt = _kernel_shape(settings)
+    f_n, m, _ = attrs.shape
+    p_pix = settings.tile_h * settings.tile_w
+    out4 = torch.empty((f_n * settings.n_tiles, 4, p_pix),
+                       dtype=torch.float32, device=attrs.device)
+    with torch.cuda.device(attrs.device):
+        stream = torch.cuda.current_stream(attrs.device).cuda_stream
+        err = _lib().bidir_composite(
+            attrs.data_ptr(), tile_lists.data_ptr(), counts.data_ptr(),
+            out4.data_ptr(), f_n, m, settings.n_tiles, settings.n_tiles_x,
+            settings.tile_w, settings.gaussian_cap, settings.chunk,
+            threads, ppt, float(settings.bg), stream)
+    if err != 0:
+        raise RuntimeError(f"bidir_composite launch failed: CUDA error "
+                           f"{err}")
+    return out4
+
+
+def bidir_composite_attrs(settings: RasterSettings, attrs, tile_lists,
+                          counts):
+    """Fwd/flip-averaged decode composite straight from attribute rows.
+
+    attrs [F, M, 9] float32 (``attr_rows_from_proj`` packing),
+    tile_lists [F, T, cap] int32 (-1 padded), counts [F, T] int32.
+    Returns ([F, 3, H, W] averaged images, [F, H, W] total
+    transmittance).  CUDA tensors launch kernel B4 (and add one to
+    ``bidir_composite_attrs.launches``); CPU tensors take the plain
+    version; any other device raises."""
+    if attrs.is_cuda:
+        out4 = bidir_out4_cuda(settings, attrs, tile_lists, counts)
+        bidir_composite_attrs.launches += 1
+        return assemble_views(settings, out4)
+    if attrs.device.type == "cpu":
+        return bidir_composite_plain(settings, attrs, tile_lists, counts)
+    raise ValueError(f"bidir_composite_attrs: unsupported device "
+                     f"{attrs.device}")
+
+
+bidir_composite_attrs.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version
+# ---------------------------------------------------------------------------
+
+def _excl_cumprod(x: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """Exclusive product along dim 1 (prefix, or suffix if ``reverse``)."""
+    if reverse:
+        return _excl_cumprod(x.flip(1), False).flip(1)
+    incl = torch.cumprod(x, dim=1)
+    return torch.cat([torch.ones_like(incl[:, :1]), incl[:, :-1]], dim=1)
+
+
+def bidir_out4_plain(settings: RasterSettings, attrs, tile_lists, counts):
+    """The kernel's function in plain PyTorch.  Returns ([F*T, 4, P]
+    tiles, number of (copy, pixel) pairs the loops evaluated — real
+    copies only)."""
+    _check_inputs(settings, attrs, tile_lists, counts)
+    f_n, m, _ = attrs.shape
+    t_n, cap, chunk = settings.n_tiles, settings.gaussian_cap, settings.chunk
+    th, tw = settings.tile_h, settings.tile_w
+    n_chunks, p_pix, ft = cap // chunk, th * tw, f_n * t_n
+    dev = attrs.device
+
+    lists = tile_lists.reshape(ft, cap).long()
+    cnt = counts.reshape(ft).long()
+    g = torch.arange(ft, device=dev)
+    u = g % t_n
+    cx = ((u % settings.n_tiles_x) * tw).float() + (tw - 1) / 2.0
+    cy = ((u // settings.n_tiles_x) * th).float() + (th - 1) / 2.0
+    lin = torch.arange(p_pix, device=dev)
+    xs = (lin % tw).float() - (tw - 1) / 2.0
+    ys = (lin // tw).float() - (th - 1) / 2.0
+    n_used = torch.clamp((cnt + chunk - 1) // chunk, max=n_chunks)
+
+    # padding ids read row 0 with opacity forced to 0 (alpha 0)
+    rows = attrs.reshape(f_n * m, 9)[(g // t_n)[:, None] * m
+                                     + lists.clamp_min(0)]   # [FT, cap, 9]
+    op_all = torch.where(lists >= 0, rows[..., 5], torch.zeros_like(
+        rows[..., 5]))
+
+    def chunk_alpha(c, sel):
+        """alpha [S, C, P] and colours [S, C, 3] of chunk c, tiles sel."""
+        r = rows[sel, c * chunk:(c + 1) * chunk]
+        op = op_all[sel, c * chunk:(c + 1) * chunk]
+        mu_x = r[..., 0] - cx[sel, None]
+        mu_y = r[..., 1] - cy[sel, None]
+        ha, hb, hc = (-0.5 * r[..., 2:3], -0.5 * r[..., 3:4],
+                      -0.5 * r[..., 4:5])
+        d0 = xs - mu_x[..., None]
+        d1 = ys - mu_y[..., None]
+        uu = ha * d0 + hb * d1
+        vv = hb * d0 + hc * d1
+        alpha = torch.clamp(op[..., None] * torch.exp(d0 * uu + d1 * vv),
+                            max=ALPHA_MAX)
+        alpha = torch.where(alpha >= ALPHA_MIN, alpha,
+                            torch.zeros_like(alpha))
+        return alpha, r[..., 6:9]
+
+    def real_copies(c, sel):
+        return torch.clamp(cnt[sel] - c * chunk, 0, chunk)
+
+    ones = torch.ones(ft, p_pix, device=dev)
+    t_f, t_b = ones.clone(), ones.clone()
+    acc_f = torch.zeros(ft, 3, p_pix, device=dev)
+    acc_h, acc_b = acc_f.clone(), acc_f.clone()
+    p_stop = torch.zeros(ft, dtype=torch.long, device=dev)
+    pairs = torch.zeros((), dtype=torch.long, device=dev)
+
+    # front loop: a tile runs chunk c while c < n_used and some pixel
+    # keeps T >= T_EPS (checked at chunk boundaries, like the kernel)
+    alive = torch.ones(ft, dtype=torch.bool, device=dev)
+    for c in range(n_chunks):
+        alive &= (c < n_used) & (t_f.amax(dim=1) >= T_EPS)
+        sel = alive.nonzero().squeeze(1)
+        if sel.numel() == 0:
+            break
+        alpha, cols = chunk_alpha(c, sel)
+        one_m = 1.0 - alpha
+        colst = cols.transpose(1, 2)                     # [S, 3, C]
+        t_before = t_f[sel, None, :] * _excl_cumprod(one_m, False)
+        w_f = torch.where(t_before >= T_EPS, alpha * t_before,
+                          torch.zeros_like(alpha))
+        chunk_t = torch.prod(one_m, dim=1)               # [S, P]
+        acc_f[sel] += torch.bmm(colst, w_f)
+        acc_h[sel] = acc_h[sel] * chunk_t[:, None] + torch.bmm(
+            colst, alpha * _excl_cumprod(one_m, True))
+        t_f[sel] *= chunk_t
+        p_stop[sel] += 1
+        pairs += real_copies(c, sel).sum()
+
+    # back loop: from n_used - 1 down while c >= p_stop and some pixel
+    # keeps S >= T_EPS
+    alive = torch.ones(ft, dtype=torch.bool, device=dev)
+    for c in range(n_chunks - 1, -1, -1):
+        started = c < n_used
+        alive &= ~started | ((c >= p_stop) & (t_b.amax(dim=1) >= T_EPS))
+        sel = (alive & started).nonzero().squeeze(1)
+        if sel.numel() == 0:
+            continue
+        alpha, cols = chunk_alpha(c, sel)
+        one_m = 1.0 - alpha
+        s_before = t_b[sel, None, :] * _excl_cumprod(one_m, True)
+        w_b = torch.where(s_before >= T_EPS, alpha * s_before,
+                          torch.zeros_like(alpha))
+        acc_b[sel] += torch.bmm(cols.transpose(1, 2), w_b)
+        t_b[sel] *= torch.prod(one_m, dim=1)
+        pairs += real_copies(c, sel).sum()
+
+    tau = t_f * t_b
+    avg = 0.5 * (acc_f + acc_b + acc_h * t_b[:, None])
+    out4 = torch.cat([avg + tau[:, None] * settings.bg, tau[:, None]], dim=1)
+    return out4, int(pairs) * p_pix
+
+
+def bidir_composite_plain(settings: RasterSettings, attrs, tile_lists,
+                          counts):
+    """Plain PyTorch ``bidir_composite_attrs`` (any device)."""
+    out4, _ = bidir_out4_plain(settings, attrs, tile_lists, counts)
+    return assemble_views(settings, out4)

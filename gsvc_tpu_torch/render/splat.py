@@ -1,0 +1,278 @@
+"""Orthographic gaussian splatting: projection, tile binning and the
+tile <-> image layouts (port of gsvc_tpu/render/splat.py:44-126,
+171-388, 571-641).
+
+  * the Toast-like Sliding Window is the ``threshold`` z-test around the
+    frame plane;
+  * binning is one stable sort of fused ``(tile << rank_bits) | rank``
+    int32 keys — ``torch.sort(stable=True)`` in place of ``lax.sort`` —
+    giving per-tile depth-ordered lists of at most ``gaussian_cap`` ids.
+    The lists and counts equal the JAX package's whenever no two copies
+    share a tile and a depth rank.
+
+Compositing lives in ``render/bidir.py`` (kernel B4 and its plain
+version).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+# per-pixel transmittance saturation: once T drops below this, later
+# gaussians no longer contribute (standard 3DGS early-stop semantics)
+T_EPS = 1e-4
+ALPHA_MIN = 1.0 / 255.0
+ALPHA_MAX = 0.99
+
+
+@dataclasses.dataclass(frozen=True)
+class RasterSettings:
+    """Static rasterization configuration — field for field the JAX
+    package's (renderer.py:63-83 plus execution knobs).
+
+    ``tile_h/tile_w/gaussian_cap/chunk`` shape the compositing kernel;
+    ``tiles_per_gaussian`` bounds the copies one gaussian emits and
+    ``clamp_to_coverage`` clamps scales so no footprint exceeds it.
+    ``copy_budget_factor`` (compacted copy stream), ``compute_dtype`` and
+    ``matmul_dtype`` (TPU MXU precision policies) are kept for config
+    parity; the port composites in float32 and bins the padded stream."""
+
+    image_height: int
+    image_width: int
+    threshold: float
+    kernel_size: float = 0.3
+    tile_h: int = 16
+    tile_w: int = 128
+    gaussian_cap: int = 1024     # max binned gaussians per tile
+    chunk: int = 64              # gaussians per compositing step
+    tiles_per_gaussian: int = 64  # max tile copies emitted per gaussian
+    clamp_to_coverage: bool = True
+    copy_budget_factor: int = 0
+    bg: float = 0.0
+    compute_dtype: str = "float32"
+    matmul_dtype: str = "float32"
+
+    @property
+    def max_radius_px(self) -> float:
+        """Largest pixel radius whose tile bbox fits tiles_per_gaussian:
+        (2R/tw + 1)(2R/th + 1) <= t_max, solved for R."""
+        a = 2.0 / self.tile_w
+        b = 2.0 / self.tile_h
+        s = a + b
+        t_max = float(self.tiles_per_gaussian)
+        return (-s + np.sqrt(s * s + 4 * a * b * (t_max - 1))) / (2 * a * b)
+
+    @property
+    def n_tiles_x(self) -> int:
+        return -(-self.image_width // self.tile_w)
+
+    @property
+    def n_tiles_y(self) -> int:
+        return -(-self.image_height // self.tile_h)
+
+    @property
+    def n_tiles(self) -> int:
+        return self.n_tiles_x * self.n_tiles_y
+
+
+class Projected(NamedTuple):
+    """Screen-space gaussians after orthographic projection."""
+
+    mean2d: torch.Tensor    # [M, 2] pixel centers
+    conic: torch.Tensor     # [M, 3] inverse 2D covariance (a, b, c)
+    depth: torch.Tensor     # [M] compositing depth (ascending = front)
+    radius: torch.Tensor    # [M] pixel radius (0 => culled)
+    valid: torch.Tensor     # [M] bool
+
+
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion [.., 4] (w, x, y, z) -> rotation matrix [.., 3, 3]."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True).clamp_min(1e-12)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    rows = [
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ]
+    return torch.stack([torch.stack(r, -1) for r in rows], dim=-2)
+
+
+def cov2d_from_scaling_rotation(scaling, rot, flip_x: bool):
+    """Top-left 2x2 block of R diag(s^2) R^T as (xx, xy, yy); the
+    reversed view mirrors x, which flips the sign of the xy term."""
+    m = quat_to_rotmat(rot) * scaling[..., None, :]    # R @ diag(s)
+    cov = m @ m.transpose(-1, -2)
+    sxy = -cov[..., 0, 1] if flip_x else cov[..., 0, 1]
+    return cov[..., 0, 0], sxy, cov[..., 1, 1]
+
+
+def project_gaussians(xyz, scaling, rot, valid, frame_z: float,
+                      x_min: float, y_min: float, scale: float,
+                      settings: RasterSettings,
+                      flip: bool = False) -> Projected:
+    """Orthographic projection + TSW cull.  ``flip`` selects the reversed
+    view: screen x mirrored, depth order reversed."""
+    if settings.clamp_to_coverage:
+        # sigma bound: 3 sqrt(sigma^2 scale^2 + kernel) <= max_radius_px
+        r = settings.max_radius_px
+        sig_max = float(np.sqrt(max((r / 3.0) ** 2 - settings.kernel_size,
+                                    1e-6))) / scale
+        scaling = torch.clamp(scaling, max=sig_max)
+    x = -xyz[:, 0] if flip else xyz[:, 0]
+    y = xyz[:, 1]
+    z = xyz[:, 2]
+
+    px = (x - x_min) * scale - 0.5
+    py = (y - y_min) * scale - 0.5
+    mean2d = torch.stack([px, py], dim=-1)
+
+    fz = torch.tensor(frame_z, dtype=xyz.dtype, device=xyz.device)
+    dz = z - fz
+    in_window = torch.abs(dz) <= settings.threshold
+    # forward view looks toward -z => larger z is nearer
+    depth = dz if flip else -dz
+
+    sxx, sxy, syy = cov2d_from_scaling_rotation(scaling, rot, flip)
+    s2 = scale * scale
+    a = sxx * s2 + settings.kernel_size
+    b = sxy * s2
+    c = syy * s2 + settings.kernel_size
+
+    det = torch.clamp(a * c - b * b, min=1e-12)
+    conic = torch.stack([c / det, -b / det, a / det], dim=-1)
+
+    mid = 0.5 * (a + c)
+    lam = mid + torch.sqrt(torch.clamp(mid * mid - det, min=0.0))
+    radius = torch.ceil(3.0 * torch.sqrt(lam))
+
+    on_screen = (
+        (px + radius >= 0) & (px - radius <= settings.image_width - 1)
+        & (py + radius >= 0) & (py - radius <= settings.image_height - 1))
+    ok = valid & in_window & on_screen
+    radius = torch.where(ok, radius, torch.zeros_like(radius))
+    return Projected(mean2d=mean2d, conic=conic, depth=depth,
+                     radius=radius, valid=ok)
+
+
+# ---------------------------------------------------------------------------
+# Tile binning
+# ---------------------------------------------------------------------------
+
+def _sorted_copy_stream(proj: Projected, settings: RasterSettings):
+    """Device-wide sorted copy stream (padded layout: every gaussian
+    emits ``tiles_per_gaussian`` copy slots covering its tile bbox).
+
+    Returns (gauss_sorted [S] int32 gaussian id per sorted copy, bounds
+    [n_tiles+1] per-tile stream offsets, coverage_clipped, src_len)."""
+    if settings.copy_budget_factor:
+        raise NotImplementedError(
+            "the compacted copy stream (copy_budget_factor > 0) is not "
+            "ported; the decoder bins the padded stream")
+    m = proj.mean2d.shape[0]
+    t_max = settings.tiles_per_gaussian
+    dev = proj.depth.device
+    i32 = torch.int32
+
+    if m >= 4096:
+        # QUANTIZED depth rank: the TSW bounds depth to [-thr, thr]; 18
+        # bits keep strict order except for exactly coincident depths
+        rank_bits = 18
+        thr = settings.threshold
+        rank = torch.clamp((proj.depth + thr) * ((2 ** rank_bits - 1)
+                                                 / (2 * thr)),
+                           0, 2 ** rank_bits - 1).to(i32)
+    else:
+        # small scenes: exact rank via a stable argsort
+        depth_key = torch.where(proj.valid, proj.depth,
+                                torch.full_like(proj.depth, float("inf")))
+        order = torch.argsort(depth_key, stable=True)
+        rank = torch.empty(m, dtype=i32, device=dev)
+        rank[order] = torch.arange(m, dtype=i32, device=dev)
+        rank_bits = max(1, (m - 1).bit_length())
+
+    x, y = proj.mean2d[:, 0], proj.mean2d[:, 1]
+    r = proj.radius
+
+    def tile_of(v, size, n):
+        return torch.clamp(torch.floor(v / size), 0, n - 1).to(i32)
+
+    tx0 = tile_of(x - r, settings.tile_w, settings.n_tiles_x)
+    tx1 = tile_of(x + r, settings.tile_w, settings.n_tiles_x)
+    ty0 = tile_of(y - r, settings.tile_h, settings.n_tiles_y)
+    ty1 = tile_of(y + r, settings.tile_h, settings.n_tiles_y)
+
+    wx = tx1 - tx0 + 1
+    wy = ty1 - ty0 + 1
+    n_cover = wx * wy
+    # diagnosed, not silent: copies beyond tiles_per_gaussian are dropped
+    coverage_clipped = torch.where(
+        proj.valid, torch.clamp(n_cover - t_max, min=0),
+        torch.zeros_like(n_cover)).sum()
+
+    slot = torch.arange(t_max, dtype=i32, device=dev)[None, :]   # [1, T]
+    sdy = torch.div(slot, wx[:, None], rounding_mode="floor")
+    sdx = slot - sdy * wx[:, None]
+    copy_valid = (slot < n_cover[:, None]) & (sdy < wy[:, None]) \
+        & proj.valid[:, None]
+    tile_id = (ty0[:, None] + sdy) * settings.n_tiles_x + (tx0[:, None] + sdx)
+    tile_key = torch.where(copy_valid, tile_id,
+                           torch.full_like(tile_id, settings.n_tiles))
+    # one fused key; int64 only when the tile count outgrows 31 bits
+    fused_ok = (settings.n_tiles + 1) << rank_bits <= 2 ** 31
+    kdt = i32 if fused_ok else torch.int64
+    fused = (tile_key.to(kdt) << rank_bits) | rank.to(kdt)[:, None]
+    fused_sorted, perm = torch.sort(fused.reshape(-1), stable=True)
+    gauss_sorted = torch.div(perm, t_max, rounding_mode="floor").to(i32)
+    starts = torch.arange(settings.n_tiles + 1, dtype=kdt,
+                          device=dev) << rank_bits
+    bounds = torch.searchsorted(fused_sorted, starts).to(i32)
+    return gauss_sorted, bounds, coverage_clipped, m * t_max
+
+
+def _bin_gaussians(proj: Projected, settings: RasterSettings):
+    """Per-tile depth-ordered gaussian id lists.
+
+    Returns (tile_lists [n_tiles, cap] int32, -1 past each count;
+    tile_counts [n_tiles] int32 (<= cap); dropped [n_tiles]; overflow
+    (dropped + coverage-clipped copies); total composited copies)."""
+    gauss_sorted, bounds, coverage_clipped, src_len = \
+        _sorted_copy_stream(proj, settings)
+    tile_start = bounds[:-1]
+    tile_count = bounds[1:] - bounds[:-1]
+
+    cap = settings.gaussian_cap
+    j = torch.arange(cap, dtype=torch.int32, device=bounds.device)[None, :]
+    gather_idx = torch.clamp(tile_start[:, None] + j, 0, src_len - 1)
+    in_range = j < tile_count[:, None]
+    tile_lists = torch.where(in_range, gauss_sorted[gather_idx.long()],
+                             torch.full_like(gather_idx, -1))
+
+    dropped = torch.clamp(tile_count - cap, min=0)
+    overflow = dropped.sum() + coverage_clipped
+    counts = torch.clamp(tile_count, max=cap)
+    return tile_lists, counts, dropped, overflow, counts.sum()
+
+
+def attr_rows_from_proj(proj: Projected, opacity, color) -> torch.Tensor:
+    """The nine per-gaussian splat attributes as [M, 9] rows:
+    (mu_x, mu_y, con_a, con_b, con_c, opacity, r, g, b)."""
+    return torch.stack([
+        proj.mean2d[:, 0], proj.mean2d[:, 1],
+        proj.conic[:, 0], proj.conic[:, 1], proj.conic[:, 2],
+        opacity[:, 0], color[:, 0], color[:, 1], color[:, 2],
+    ], dim=1)
+
+
+def assemble_views(settings: RasterSettings, out4: torch.Tensor):
+    """[V*T, 4, P] tiles -> ([V, 3, H, W] images, [V, H, W] transmittance)."""
+    th, tw = settings.tile_h, settings.tile_w
+    nty, ntx = settings.n_tiles_y, settings.n_tiles_x
+    v = out4.shape[0] // settings.n_tiles
+    full = out4.reshape(v, nty, ntx, 4, th, tw)
+    full = full.permute(0, 3, 1, 4, 2, 5).reshape(v, 4, nty * th, ntx * tw)
+    full = full[:, :, :settings.image_height, :settings.image_width]
+    return full[:, :3], full[:, 3]
