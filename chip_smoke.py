@@ -4,23 +4,47 @@
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the port's native code from the checkout (``nvcc`` for the
-   kernels, the host C++ compiler for the entropy codec) and prints the
-   build's wall seconds.
+   kernels, the host C++ compiler for the entropy codec), all compilers
+   started together, and prints the build's wall seconds.
 3. Kernel phase: kernel B4 (``bidir_composite_attrs``) against its plain
-   PyTorch version on the card at the 1080p decode shapes (T=1020 tiles,
-   cap 1024, chunk 128, P=2048 pixels) with seeded random attribute rows:
-   empty tiles, full lists of saturated stacks, chunk-aligned and partial
-   last chunks.
-4. Slice phase: decodes the committed 1080p bitstream
+   PyTorch version at the 1080p decode shapes (T=1020 tiles, cap 1024,
+   chunk 128, P=2048 pixels), and kernels B1/B2 (``mirror_forward`` /
+   ``mirror_backward``, the training composite) against theirs at the
+   1080p training shapes (F=2 frames, T=2025 tiles of 8x128, cap 1024,
+   chunk 128), with and without per-view means2d gradients; seeded
+   attribute rows: empty tiles, full lists of saturated stacks,
+   chunk-aligned and partial last chunks.
+4. Decode phase: decodes the committed 1080p bitstream
    (artifacts/rd_r5/realtex_0.004) with ``gsvc_tpu_torch.cli.decode`` and
-   renders 8 frames spread over the video through ``report.evaluate_video``
-   — the decoder's own render loop — with the launch counts reset just
-   before and read just after; then holds each frame's kernel composite
-   against the plain version on the same inputs and times both.
-5. Prints the kernel table as one JSON line, then the result line.
+   renders 8 frames through ``report.evaluate_video`` — the decoder's own
+   render loop — with the launch counts reset just before and read just
+   after; then holds each frame's kernel composite against the plain
+   version and times both.
+5. Training phase: the 600 frames the port decodes from that bitstream
+   become the ground truth (uint8 on the card); ``GOPFitter.fit`` runs 24
+   steps of the fixture's model and pipeline
+   (artifacts/rd_r5/realtex_0.004/cfg_args.yaml: 1920x1080, 100k initial
+   anchors, 50-dim features, 10 offsets, 8x128 tiles) with only the
+   schedule overlaid — 12 FULL_PRECISION and 12 QUANTIZED_NOISE steps,
+   statistics from step 3 on, no densify epoch; the fit's eval hook
+   scores all 600 frames after steps 12 and 24.  The launch counts are
+   reset just before and read just after: B1 and B2 must launch once per
+   step.  Every loss must be finite; the mean PSNR of the 600 frames
+   (FULL_PRECISION renders) after the 12 FULL_PRECISION steps must be
+   above the PSNR before step 1; and the checkpoint written at step 24
+   must load into a fresh fitter.  (The training loss itself does not
+   fall in 12 steps: at step 1 the optical-flow term is ~0 — the
+   time-conditioned offsets barely differ between neighbouring frames at
+   the initial weights — and it grows as soon as the deform MLP takes its
+   first Adam steps, in the JAX package as in the port.)  Prints each
+   step's loss terms and time split (CUDA events) and times B1/B2 and
+   their plain versions on one training pair's inputs against their
+   bounds.
+6. Prints the kernel table as one JSON line, then the result line.
 
 Any failed check raises, so the run exits non-zero and prints no result.
-Frames are written nowhere.  Without a CUDA device the script exits 1.
+Frames are written nowhere; the checkpoint goes to a temporary directory.
+Without a CUDA device the script exits 1.
 """
 
 from __future__ import annotations
@@ -29,14 +53,29 @@ import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-FIXTURE = str(pathlib.Path(__file__).resolve().parent / "artifacts"
-              / "rd_r5" / "realtex_0.004" / "bitstreams")
+FIXTURE_DIR = pathlib.Path(__file__).resolve().parent / "artifacts" \
+    / "rd_r5" / "realtex_0.004"
+FIXTURE = str(FIXTURE_DIR / "bitstreams")
 N_FRAMES = 8
+# the training run: the fixture's config with only the schedule overlaid
+TRAIN_STEPS = 24
+SCHEDULE = {"optimization.iterations": TRAIN_STEPS,
+            "optimization.full_precision_training_total": 12,
+            "optimization.quantized_training_total": 12,
+            "optimization.start_stat": 2,
+            "optimization.pause_densification": 4}
+# kernel B2 vs its plain version, per attribute: the largest difference at
+# most 2e-3 of the largest gradient magnitude.  Both run the same chunk
+# stops; the kernel forms each in-chunk suffix as the chunk's sum minus a
+# running prefix, the plain version by a reverse cumsum, and 1/(1 - alpha)
+# amplifies that rounding up to 100x; pixel sums also run in other orders.
+BWD_REL_ERR = 2e-3
 # kernel vs plain version: both run the same per-tile, chunk-granular loop
 # stops; they differ by float rounding (sequential products in the kernel,
 # cumprod/bmm in the plain version, FMA contraction) except where a pixel's
@@ -51,6 +90,12 @@ FP32_FLOP_PER_S = 67e12
 # compositing step (weight, gate, 3 colour FMAs, transmittance: 10);
 # FMA counts 2.  The front loop's Horner step costs 9 more per pair.
 FLOPS_PER_PAIR = 25
+# least FP32 work of one replayed (copy, pixel) pair in the backward: the
+# alpha (15), its transmittance and weight (3), the colour-gradient dot
+# (5), the suffix (2), dL/dalpha with its division (5), dq (2), the six
+# moment sums (11) and the colour sums (6); the kernel's second alpha
+# evaluation is not counted.
+FLOPS_PER_BWD_PAIR = 49
 
 
 def log(*args):
@@ -72,15 +117,18 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def bound_ms(attrs, lists, counts, out_elems: int, pairs: int):
-    """(least ms, what bounds it): each input read once, the output
-    written once, over HBM bandwidth; the pairs' FP32 work over peak."""
-    n_bytes = (attrs.numel() * 4 + lists.numel() * 4 + counts.numel() * 4
-               + out_elems * 4)
+def bound_ms(n_bytes: int, flops: float):
+    """(least ms, what bounds it): ``n_bytes`` (each input read once, each
+    output written once) over HBM bandwidth, or ``flops`` FP32 operations
+    over peak."""
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = pairs * FLOPS_PER_PAIR / FP32_FLOP_PER_S
+    t_ops = flops / FP32_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops > t_bytes
                                        else "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def synthetic_tiles(settings, seed: int, device):
@@ -125,6 +173,116 @@ def synthetic_tiles(settings, seed: int, device):
             counts.to(torch.int32)[None].contiguous())
 
 
+def synthetic_frames(settings, seed: int, n_frames: int, device):
+    """``synthetic_tiles`` for F frames, stacked (rows zero padded to the
+    largest frame's)."""
+    parts = [synthetic_tiles(settings, seed + f, device)
+             for f in range(n_frames)]
+    m = max(p[0].shape[1] for p in parts)
+    attrs = torch.zeros((n_frames, m, 9), device=device)
+    for f, p in enumerate(parts):
+        attrs[f, :p[0].shape[1]] = p[0][0]
+    return (attrs.contiguous(), torch.cat([p[1] for p in parts]),
+            torch.cat([p[2] for p in parts]))
+
+
+def bwd_rel_err(got, want, dim: int):
+    """Largest |got - want| over the largest |want|, per attribute (the
+    9 entries along ``dim``)."""
+    worst = 0.0
+    for g, w in zip(got.unbind(dim), want.unbind(dim)):
+        scale = max(float(w.abs().max()), 1e-30)
+        worst = max(worst, float((g - w).abs().max()) / scale)
+    return worst
+
+
+def mirror_check(mirror, settings, attrs, lists, counts, label):
+    """B1 and B2 against their plain versions on one input; the scatter
+    with and without per-view means2d through the autograd function.
+    Returns (B1 max abs err, B2 max abs err, forward pairs, backward
+    pairs, (plain out4, plain t_chk, cotangent, plain per-copy grads))."""
+    out_k, chk_k = mirror.mirror_fwd_cuda(settings, attrs, lists, counts)
+    out_p, chk_p, pairs_f = mirror.mirror_fwd_plain(settings, attrs, lists,
+                                                    counts)
+    torch.cuda.synchronize()
+    fwd_err = max(float((out_k - out_p).abs().max()),
+                  float((chk_k - chk_p).abs().max()))
+    if not np.isfinite(fwd_err) or fwd_err > MAX_ABS_ERR:
+        raise AssertionError(f"{label}: B1 disagrees with its plain "
+                             f"version: {fwd_err} > {MAX_ABS_ERR}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    g_out = torch.randn(out_p.shape, generator=gen, device="cuda")
+    # both versions replay from the same checkpoints, so they stop on the
+    # same chunks
+    gr_k = mirror.mirror_bwd_cuda(settings, attrs, lists, counts, chk_p,
+                                  g_out)
+    gr_p, pairs_b = mirror.mirror_bwd_plain(settings, attrs, lists, counts,
+                                            chk_p, g_out)
+    torch.cuda.synchronize()
+    if not torch.isfinite(gr_k).all():
+        raise AssertionError(f"{label}: B2 gave non-finite gradients")
+    bwd_err = bwd_rel_err(gr_k, gr_p, 1)
+    bwd_abs = float((gr_k - gr_p).abs().max())
+    for per_view in (False, True):
+        da_k, dm_k = mirror.scatter_grads(settings, gr_k, lists,
+                                          attrs.shape[1], per_view)
+        da_p, dm_p = mirror.scatter_grads(settings, gr_p, lists,
+                                          attrs.shape[1], per_view)
+        bwd_err = max(bwd_err, bwd_rel_err(da_k, da_p, -1))
+        bwd_abs = max(bwd_abs, float((da_k - da_p).abs().max()))
+        if per_view:
+            diff = float((dm_k - dm_p).abs().max())
+            scale = max(float(dm_p.abs().max()), 1e-30)
+            bwd_err = max(bwd_err, diff / scale)
+            bwd_abs = max(bwd_abs, diff)
+    if not np.isfinite(bwd_err) or bwd_err > BWD_REL_ERR:
+        raise AssertionError(f"{label}: B2 disagrees with its plain "
+                             f"version: {bwd_err} > {BWD_REL_ERR} of the "
+                             f"largest gradient")
+    log(f"{label}: {int(counts.sum())} copies over {counts.numel()} tiles; "
+        f"B1 max |kernel - plain| {fwd_err:.3e} (limit {MAX_ABS_ERR:.0e}); "
+        f"B2 max |kernel - plain| / max |plain| {bwd_err:.3e} (limit "
+        f"{BWD_REL_ERR:.0e}; max |kernel - plain| {bwd_abs:.3e}; per-copy "
+        f"rows and the scatter with and without means2d)")
+    return fwd_err, bwd_abs, pairs_f, pairs_b, (out_p, chk_p, g_out, gr_p)
+
+
+def mirror_times(mirror, settings, attrs, lists, counts, aux, pairs_f,
+                 pairs_b, label):
+    """Kernel and plain times of B1 and B2 on one input, with bounds."""
+    out_p, chk_p, g_out, gr_p = aux
+    f_ms = cuda_ms(lambda: mirror.mirror_fwd_cuda(settings, attrs, lists,
+                                                  counts), 10)
+    b_ms = cuda_ms(lambda: mirror.mirror_bwd_cuda(settings, attrs, lists,
+                                                  counts, chk_p, g_out), 5)
+    f_plain = cuda_ms(lambda: mirror.mirror_fwd_plain(settings, attrs,
+                                                      lists, counts), 1)
+    b_plain = cuda_ms(lambda: mirror.mirror_bwd_plain(
+        settings, attrs, lists, counts, chk_p, g_out), 1)
+    ins = nbytes(attrs, lists, counts)
+    fb = bound_ms(ins + nbytes(out_p, chk_p), pairs_f * FLOPS_PER_PAIR)
+    bb = bound_ms(ins + nbytes(chk_p, g_out, gr_p),
+                  pairs_b * FLOPS_PER_BWD_PAIR)
+    log(f"{label}: B1 kernel {f_ms:.4f} ms, plain {f_plain:.3f} ms, bound "
+        f"{fb[0]:.4f} ms ({fb[1]}; {pairs_f} pairs); B2 kernel "
+        f"{b_ms:.4f} ms, plain {b_plain:.3f} ms, bound {bb[0]:.4f} ms "
+        f"({bb[1]}; {pairs_b} pairs)")
+    return (dict(ms=f_ms, plain_ms=f_plain, bound_ms=fb[0], bound_by=fb[1]),
+            dict(ms=b_ms, plain_ms=b_plain, bound_ms=bb[0], bound_by=bb[1]))
+
+
+def mirror_kernel_phase(mirror, settings):
+    """B1/B2 against their plain versions at the 1080p training shapes."""
+    attrs, lists, counts = synthetic_frames(settings, seed=1, n_frames=2,
+                                            device="cuda")
+    f_err, b_err, pf, pb, aux = mirror_check(mirror, settings, attrs, lists,
+                                             counts, "kernel phase (B1/B2)")
+    mirror_times(mirror, settings, attrs, lists, counts, aux, pf, pb,
+                 "kernel phase (B1/B2, synthetic)")
+    return f_err, b_err
+
+
 def kernel_phase(bidir, settings):
     """B4 against its plain version at the 1080p shapes."""
     attrs, lists, counts = synthetic_tiles(settings, seed=0, device="cuda")
@@ -145,14 +303,16 @@ def kernel_phase(bidir, settings):
                                                counts), 20)
     plain_ms = cuda_ms(lambda: bidir.bidir_out4_plain(settings, attrs,
                                                       lists, counts), 2)
-    b_ms, b_by = bound_ms(attrs, lists, counts, out_k.numel(), pairs)
+    b_ms, b_by = bound_ms(nbytes(attrs, lists, counts, out_k),
+                          pairs * FLOPS_PER_PAIR)
     log(f"kernel phase: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}; {pairs} evaluated pairs)")
     return err
 
 
 def slice_phase(bidir):
-    """Decode the committed bitstream and render 8 frames through B4."""
+    """Decode the committed bitstream and render 8 frames through B4.
+    Returns (B4's numbers, the decoded bitstream)."""
     from gsvc_tpu_torch.cli.decode import decode_bitstream
     from gsvc_tpu_torch.render.batched import frame_splats
     from gsvc_tpu_torch.report import evaluate_video
@@ -219,14 +379,200 @@ def slice_phase(bidir):
     out_p, pairs = bidir.bidir_out4_plain(dec.settings, a, l, c)
     plain_ms = cuda_ms(lambda: bidir.bidir_out4_plain(dec.settings, a, l,
                                                       c), 2)
-    b_ms, b_by = bound_ms(a, l, c, out_p.numel(), pairs)
+    b_ms, b_by = bound_ms(nbytes(a, l, c, out_p), pairs * FLOPS_PER_PAIR)
     splats_ms = cuda_ms(lambda: splats(zs[N_FRAMES // 2]), 5)
     log(f"slice phase: frame {ids[N_FRAMES // 2]} composite: kernel "
         f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
         f"({b_by}; {pairs} evaluated pairs); window + generation + "
         f"projection + binning {splats_ms:.3f} ms")
     return dict(launches=launches, max_abs_err=max_err, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by), dec
+
+
+def decoded_ground_truth(dec):
+    """All frames of the decoded bitstream as a uint8 [T, H, W, 3] host
+    stack — the training phase's ground truth (the fixture's source
+    frames are not in the repository)."""
+    from gsvc_tpu_torch.render.batched import render_frame_bidir
+
+    t = len(dec.frame_zs)
+    h, w = dec.settings.image_height, dec.settings.image_width
+    out = np.empty((t, h, w, 3), np.uint8)
+    with torch.no_grad():
+        for i, z in enumerate(dec.frame_zs):
+            img, _, _ = render_frame_bidir(
+                dec.state, dec.cfg, float(z), dec.x_min, dec.y_min,
+                dec.scale, dec.settings, dec.window_cap)
+            u8 = torch.round(img.clamp(0, 1) * 255).to(torch.uint8)
+            out[i] = u8.permute(1, 2, 0).cpu().numpy()
+    return out
+
+
+class StepTimer:
+    """CUDA events at the train step's marks (gsvc_tpu_torch.train.
+    trainer.make_step_body): start, b1_start, b1_end, loss_end, b2_start,
+    b2_end, backward_end, adam_end."""
+
+    def __init__(self):
+        self.steps = []
+
+    def mark(self, name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        if name == "start":
+            self.steps.append({})
+        self.steps[-1][name] = ev
+
+    def split(self):
+        """Per step: {phase: ms}."""
+        torch.cuda.synchronize()
+        rows = []
+        for e in self.steps:
+            def ms(a, b, e=e):
+                return e[a].elapsed_time(e[b])
+            b2 = ms("b2_start", "b2_end")
+            rows.append({
+                "step": ms("start", "adam_end"),
+                "generation+projection+binning": ms("start", "b1_start"),
+                "B1": ms("b1_start", "b1_end"),
+                "loss": ms("b1_end", "loss_end"),
+                "B2+scatter": b2,
+                "rest of backward": ms("loss_end", "backward_end") - b2,
+                "Adam+stats": ms("backward_end", "adam_end"),
+            })
+        return rows
+
+
+def training_pair_inputs(fitter, i1: int):
+    """The composite's inputs for the frame pair (i1, i1 + 1) of the
+    fitted state, built as render_pair builds them (FULL_PRECISION)."""
+    from gsvc_tpu_torch.models.gaussians import (
+        GenerateMode, generate_neural_gaussians, window_for_frame,
+    )
+    from gsvc_tpu_torch.render.splat import (
+        _bin_gaussians, attr_rows_from_proj, project_gaussians,
+    )
+
+    d, st, s = fitter.dataset, fitter.state, fitter.settings
+    attrs, lists, counts = [], [], []
+    with torch.no_grad():
+        for i in (i1, i1 + 1):
+            z = float(fitter.frame_zs[i])
+            start, in_window = window_for_frame(st, fitter.gcfg, z,
+                                                fitter.window_cap)
+            gss = generate_neural_gaussians(
+                st, fitter.gcfg, z, z, start, in_window, fitter.window_cap,
+                mode=GenerateMode.FULL_PRECISION, decoded=False)
+            proj = project_gaussians(gss.xyz, gss.scaling, gss.rot,
+                                     gss.valid, z, d.x_min, d.y_min,
+                                     d.scale, s)
+            tl, cnt, _, _, _ = _bin_gaussians(proj, s)
+            op = torch.where(proj.valid[:, None], gss.opacity,
+                             torch.zeros_like(gss.opacity))
+            attrs.append(attr_rows_from_proj(proj, op, gss.color))
+            lists.append(tl)
+            counts.append(cnt)
+    return (torch.stack(attrs).contiguous(), torch.stack(lists),
+            torch.stack(counts))
+
+
+def training_phase(dec, bidir, mirror):
+    """24 steps of GOPFitter.fit at the fixture's full width."""
+    from gsvc_tpu_torch.config import load_config
+    from gsvc_tpu_torch.framecube.frame import FrameCubeDataset
+    from gsvc_tpu_torch.train.fit import GOPFitter
+    from gsvc_tpu_torch.utils.checkpoint import load_checkpoint
+
+    t0 = time.perf_counter()
+    frames = decoded_ground_truth(dec)
+    log(f"training phase: ground truth {frames.shape} uint8 rendered from "
+        f"the bitstream in {time.perf_counter() - t0:.2f} s")
+    cfg = load_config(str(FIXTURE_DIR / "cfg_args.yaml"), overrides=SCHEDULE)
+    cfg.pipeline.source_path = cfg.pipeline.optical_path = ""
+    cfg.pipeline.model_path = ""
+    dataset = FrameCubeDataset(images=frames)
+    t0 = time.perf_counter()
+    fitter = GOPFitter(cfg, dataset, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"training phase: fitter set up in {time.perf_counter() - t0:.2f} s"
+        f": {fitter.state.n_active} anchors (capacity {fitter.capacity}), "
+        f"window_cap {fitter.window_cap}, tiles "
+        f"{fitter.settings.tile_h}x{fitter.settings.tile_w} "
+        f"(T={fitter.settings.n_tiles}), cap {fitter.settings.gaussian_cap}"
+        f", chunk {fitter.settings.chunk}")
+    t0 = time.perf_counter()
+    psnr0 = fitter.evaluate()["psnr"]
+    log(f"training phase: before step 1, mean PSNR of the {len(frames)} "
+        f"frames {psnr0:.4f} dB ({time.perf_counter() - t0:.2f} s)")
+    fitter.timer = StepTimer()
+    ckpt_dir = tempfile.mkdtemp(prefix="gsvc_smoke_")
+
+    bidir.bidir_composite_attrs.launches = 0
+    mirror.mirror_forward.launches = 0
+    mirror.mirror_backward.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = fitter.fit(iterations=TRAIN_STEPS, log_every=1,
+                        eval_every=TRAIN_STEPS // 2,
+                        checkpoint_iterations=(TRAIN_STEPS,),
+                        checkpoint_dir=ckpt_dir)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (mirror.mirror_forward.launches,
+                mirror.mirror_backward.launches)
+    log(f"training phase: {TRAIN_STEPS} steps in {wall:.3f} s wall "
+        f"(two 600-frame evals and the checkpoint included); launches "
+        f"B1 {launches[0]}, B2 {launches[1]}")
+    if launches != (TRAIN_STEPS, TRAIN_STEPS):
+        raise AssertionError(f"B1/B2 launched {launches} times in "
+                             f"{TRAIN_STEPS} steps")
+
+    losses = [h["loss"] for h in report.history]
+    if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"losses: {losses}")
+    for key in ("loss", "l1", "optical", "psnr"):
+        log(f"training phase: {key} per step " + ", ".join(
+            f"{h[key]:.5f}" for h in report.history))
+    evals = {e["iter"]: e["psnr"] for e in report.evals}
+    log(f"training phase: mean PSNR of the {len(frames)} frames: before "
+        f"step 1 {psnr0:.4f} dB, after step 12 {evals[12]:.4f} dB, after "
+        f"step 24 {evals[24]:.4f} dB")
+    if not evals[12] > psnr0:
+        raise AssertionError(f"the FULL_PRECISION steps did not improve the "
+                             f"fit: PSNR {psnr0} before, {evals[12]} after")
+
+    split = fitter.timer.split()
+    later = split[1:]
+    med = {k: float(np.median([r[k] for r in later])) for k in later[0]}
+    log("training phase: step ms (CUDA events) " + ", ".join(
+        f"{r['step']:.2f}" for r in split))
+    log("training phase: median over steps 2-24: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in med.items()))
+    log(f"training phase: {1e3 / med['step']:.3f} it/s at 1920x1080 from "
+        f"the median step")
+
+    fresh = GOPFitter(cfg, dataset, seed=1, device="cuda")
+    it = load_checkpoint(f"{ckpt_dir}/chkpnt{TRAIN_STEPS}.pkl", fresh)
+    same = all(torch.equal(a, b) for a, b in zip(fresh.state.anchors,
+                                                 fitter.state.anchors))
+    if it != TRAIN_STEPS or not same or fresh.adam.step != TRAIN_STEPS:
+        raise AssertionError("the step-24 checkpoint did not load back")
+    log(f"training phase: checkpoint {ckpt_dir}/chkpnt{TRAIN_STEPS}.pkl "
+        f"loaded into a fresh fitter (iteration {it})")
+    del fresh
+
+    # the kernels on one training pair's inputs (frames 299, 300)
+    attrs, lists, counts = training_pair_inputs(fitter, 299)
+    f_err, b_err, pf, pb, aux = mirror_check(
+        mirror, fitter.settings, attrs, lists, counts,
+        "training phase (frames 299-300)")
+    b1, b2 = mirror_times(mirror, fitter.settings, attrs, lists, counts, aux,
+                          pf, pb, "training phase (frames 299-300)")
+    b1.update(launches=launches[0], max_abs_err=f_err,
+              step_ms=med["B1"])
+    b2.update(launches=launches[1], max_abs_err=b_err,
+              step_ms=med["B2+scatter"])
+    return b1, b2
 
 
 def main() -> int:
@@ -235,7 +581,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     from gsvc_tpu_torch import build
-    from gsvc_tpu_torch.render import bidir
+    from gsvc_tpu_torch.render import bidir, mirror
     from gsvc_tpu_torch.render.splat import RasterSettings
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -261,7 +607,13 @@ def main() -> int:
                               gaussian_cap=1024, chunk=128,
                               tiles_per_gaussian=32)
     kernel_err = kernel_phase(bidir, settings)
-    res = slice_phase(bidir)
+    train_settings = RasterSettings(image_height=1080, image_width=1920,
+                                    threshold=0.05, tile_h=8, tile_w=128,
+                                    gaussian_cap=1024, chunk=128,
+                                    tiles_per_gaussian=32)
+    mk_fwd, mk_bwd = mirror_kernel_phase(mirror, train_settings)
+    res, dec = slice_phase(bidir)
+    b1, b2 = training_phase(dec, bidir, mirror)
 
     table = {"kernels": [{
         "name": "bidir_composite_attrs",
@@ -274,6 +626,30 @@ def main() -> int:
         "plain_ms": res["plain_ms"],
         "bound_ms": res["bound_ms"],
         "bound_by": res["bound_by"],
+        "library_ms": None,   # no PyTorch call computes this function
+    }, {
+        "name": "mirror_forward",
+        "route": "cuda",
+        "source": "gsvc_tpu_torch/csrc/mirror_fwd.cu",
+        "replaces": "gsvc_tpu/render/pallas_splat.py:636",
+        "launches": b1["launches"],
+        "max_abs_err": max(mk_fwd, b1["max_abs_err"]),
+        "ms": b1["ms"],
+        "plain_ms": b1["plain_ms"],
+        "bound_ms": b1["bound_ms"],
+        "bound_by": b1["bound_by"],
+        "library_ms": None,   # no PyTorch call computes this function
+    }, {
+        "name": "mirror_backward",
+        "route": "cuda",
+        "source": "gsvc_tpu_torch/csrc/mirror_bwd.cu",
+        "replaces": "gsvc_tpu/render/pallas_splat.py:699",
+        "launches": b2["launches"],
+        "max_abs_err": max(mk_bwd, b2["max_abs_err"]),
+        "ms": b2["ms"],
+        "plain_ms": b2["plain_ms"],
+        "bound_ms": b2["bound_ms"],
+        "bound_by": b2["bound_by"],
         "library_ms": None,   # no PyTorch call computes this function
     }]}
     log(json.dumps(table))

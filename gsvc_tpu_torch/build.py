@@ -4,8 +4,9 @@ Two shared libraries with plain C interfaces, loaded with ``ctypes``:
 
   * ``csrc/gsvc_codec.cpp`` (the repo's host entropy codec) compiled by the
     host C++ compiler — the one ``nvcc`` drives (``g++`` on the PATH);
-  * each ``gsvc_tpu_torch/csrc/*.cu`` kernel compiled by ``nvcc`` for
-    ``sm_90a`` (Hopper) with ``-O3 -shared -Xcompiler -fPIC``.
+  * each ``gsvc_tpu_torch/csrc/*.cu`` kernel (with the shared
+    ``composite.cuh``) compiled by ``nvcc`` for ``sm_90a`` (Hopper) with
+    ``-O3 -shared -Xcompiler -fPIC``.
 
 Nothing includes PyTorch's headers, so a build takes seconds.  Outputs
 go to ``build/gsvc_tpu_torch/`` under the repo root (never next to the
@@ -30,7 +31,7 @@ REPO_ROOT = pathlib.Path(__file__).resolve().parents[1]
 BUILD_DIR = REPO_ROOT / "build" / "gsvc_tpu_torch"
 CODEC_SRC = REPO_ROOT / "csrc" / "gsvc_codec.cpp"
 KERNEL_DIR = pathlib.Path(__file__).resolve().parent / "csrc"
-KERNELS = ("bidir",)
+KERNELS = ("bidir", "mirror_fwd", "mirror_bwd")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -72,8 +73,12 @@ def _command(name: str, out: str) -> List[str]:
 
 
 def _target(name: str) -> pathlib.Path:
-    """Content-addressed output path: hash of the source and command."""
+    """Content-addressed output path: hash of the source, the kernels'
+    shared headers and the command."""
     h = hashlib.sha1(_source(name).read_bytes())
+    if name in KERNELS:
+        for header in sorted(KERNEL_DIR.glob("*.cuh")):
+            h.update(header.read_bytes())
     h.update(" ".join(_command(name, "OUT")[1:]).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

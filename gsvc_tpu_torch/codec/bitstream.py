@@ -31,9 +31,10 @@ from gsvc_tpu_torch.codec.native import (
 from gsvc_tpu_torch.codec.param_codec import decode_mlp_params
 from gsvc_tpu_torch.codec.unpickle import restricted_loads
 from gsvc_tpu_torch.models.gaussians import (
-    ANCHOR_ROUND_DIGITS, AnchorState, GaussianConfig, ModelState, NetParams,
-    Q_FEAT, Q_OFFSETS, Q_SCALING, map_tree,
+    AnchorState, GaussianConfig, ModelState, NetParams, Q_FEAT, Q_OFFSETS,
+    Q_SCALING, map_tree,
 )
+from gsvc_tpu_torch.ops.quant import ANCHOR_ROUND_DIGITS
 
 MAX_BATCH = 1000
 STREAM_Z_INTERVAL = 0.01

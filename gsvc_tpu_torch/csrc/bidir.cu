@@ -31,60 +31,16 @@
 // are per tile and chunk-granular (__syncthreads_or), exactly as the TPU kernel's
 // while-loops, so kernel and plain version agree to float rounding.  The alpha is
 // computed without FMA contraction, as the plain version computes it (see alpha_at).
-#include <cuda_runtime.h>
+#include "composite.cuh"
 
 namespace {
 
-constexpr float kTEps = 1e-4f;
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kAlphaMax = 0.99f;
-constexpr int kMaxChunk = 128;
-constexpr int kMaxThreads = 256;
-
-struct Chunk {
-  float mx[kMaxChunk], my[kMaxChunk];              // tile-local means
-  float ha[kMaxChunk], hb[kMaxChunk], hc[kMaxChunk];  // conic * -1/2
-  float op[kMaxChunk];                             // 0 for padding ids
-  float r[kMaxChunk], g[kMaxChunk], b[kMaxChunk];
-};
-
-// Gathers chunk c of the tile's id list into the shared stage.
-__device__ __forceinline__ void load_chunk(Chunk& s, const float* __restrict__ rows,
-                                           const int* __restrict__ list, int c,
-                                           int chunk, int m, float cx, float cy) {
-  for (int i = threadIdx.x; i < chunk; i += blockDim.x) {
-    const int id = list[c * chunk + i];
-    if (id >= 0 && id < m) {
-      const float* row = rows + static_cast<size_t>(id) * 9;
-      s.mx[i] = row[0] - cx;
-      s.my[i] = row[1] - cy;
-      s.ha[i] = -0.5f * row[2];
-      s.hb[i] = -0.5f * row[3];
-      s.hc[i] = -0.5f * row[4];
-      s.op[i] = row[5];
-      s.r[i] = row[6];
-      s.g[i] = row[7];
-      s.b[i] = row[8];
-    } else {
-      s.mx[i] = s.my[i] = s.ha[i] = s.hb[i] = s.hc[i] = 0.0f;
-      s.op[i] = s.r[i] = s.g[i] = s.b[i] = 0.0f;
-    }
-  }
-}
-
-// Clamped alpha of copy i at tile-local pixel (x, y) (pallas_splat.py _chunk_alpha).
-// Every product and sum is rounded on its own (__fmul_rn / __fadd_rn are never
-// contracted into FMAs), in the plain version's order, so both compute the same
-// alphas: ALPHA_MIN is a 1/255 step that a one-ulp difference could cross.
-__device__ __forceinline__ float alpha_at(const Chunk& s, int i, float x, float y) {
-  const float d0 = __fsub_rn(x, s.mx[i]);
-  const float d1 = __fsub_rn(y, s.my[i]);
-  const float u = __fadd_rn(__fmul_rn(s.ha[i], d0), __fmul_rn(s.hb[i], d1));
-  const float v = __fadd_rn(__fmul_rn(s.hb[i], d0), __fmul_rn(s.hc[i], d1));
-  const float q = __fadd_rn(__fmul_rn(d0, u), __fmul_rn(d1, v));
-  const float a = fminf(__fmul_rn(s.op[i], expf(q)), kAlphaMax);
-  return a >= kAlphaMin ? a : 0.0f;
-}
+using gsvc::Chunk;
+using gsvc::alpha_at;
+using gsvc::kMaxChunk;
+using gsvc::kMaxThreads;
+using gsvc::kTEps;
+using gsvc::load_chunk;
 
 template <int PPT>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -128,7 +84,7 @@ bidir_kernel(const float* __restrict__ attrs, const int* __restrict__ lists,
       const float cr = s.r[i], cg = s.g[i], cb = s.b[i];
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
-        const float a = alpha_at(s, i, xs[k], ys[k]);
+        const float a = alpha_at(s, i, xs[k], ys[k]).a;
         const float one_m = 1.0f - a;
         if (tf[k] >= kTEps) {
           const float w = a * tf[k];
@@ -163,7 +119,7 @@ bidir_kernel(const float* __restrict__ attrs, const int* __restrict__ lists,
       const float cr = s.r[i], cg = s.g[i], cb = s.b[i];
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
-        const float a = alpha_at(s, i, xs[k], ys[k]);
+        const float a = alpha_at(s, i, xs[k], ys[k]).a;
         if (tb[k] >= kTEps) {
           const float w = a * tb[k];
           ab[k][0] += w * cr;

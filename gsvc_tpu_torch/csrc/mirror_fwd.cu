@@ -1,0 +1,153 @@
+// Kernel B1 of the PyTorch/CUDA port: the training forward composite of the
+// forward and x-mirrored views.
+//
+// Replaces the TPU kernel _fwd_kernel_mirror (gsvc_tpu/render/pallas_splat.py:636,
+// launched by _mirror_call, :854).  For F frames it composites, from the forward
+// view's depth-sorted tile lists alone, the forward view and the x-flipped view:
+// a flip step reads data tile u, evaluates alpha at negated tile-centred x, walks
+// the chunks from the last used one down (and each chunk's copies bottom-up), and
+// writes the output tile mirror(u).  Output rows are in view order (f0 fwd, f0 flip,
+// f1 fwd, f1 flip).  It saves the transmittance before every composite position
+// (t_chk [2F*T, n_chunks + 1, P]; positions after the per-tile early stop hold the
+// final T, slot n_chunks the exact final T) for kernel B2's reverse replay.  The
+// Python wrapper is gsvc_tpu_torch/render/mirror.py, whose plain PyTorch version
+// computes the same function.
+//
+// What bounds it on an H100: arithmetic.  Each evaluated (copy, pixel) pair costs an
+// alpha (quadratic form, expf) and one compositing step, ~25 FP32 operations, while a
+// tile reads 36 B per copy once (shared by its 1024 pixels) and writes 4 + n_chunks + 1
+// floats per pixel.
+//
+// What the design does about it: one block per (data tile, view) step; each thread owns
+// PPT pixels and keeps their transmittance and colour sums in registers.  Each chunk of
+// <= 128 copies is gathered from the [M, 9] rows into shared memory once (tile-local
+// means, conic pre-scaled by -1/2) and read as broadcasts.  The TPU kernel's log-space
+// triangular-matmul cumsum (a Mosaic workaround) becomes a per-pixel running product
+// inside the chunk (t_before = T_carry * E, E *= 1 - alpha), the structure of the TPU
+// kernel's t_carry * excl.  Loop stops are per tile and chunk-granular
+// (__syncthreads_or), as the TPU kernel's while-loop.  The alpha is computed without
+// FMA contraction, in the plain version's order (see alpha_at).  The two views of a
+// data tile are independent blocks: the forward writes no shared row.
+#include "composite.cuh"
+
+namespace {
+
+using gsvc::Chunk;
+using gsvc::alpha_at;
+using gsvc::kMaxChunk;
+using gsvc::kMaxThreads;
+using gsvc::kTEps;
+using gsvc::load_chunk;
+
+template <int PPT>
+__global__ void __launch_bounds__(kMaxThreads)
+mirror_fwd_kernel(const float* __restrict__ attrs, const int* __restrict__ lists,
+                  const int* __restrict__ counts, float* __restrict__ out,
+                  float* __restrict__ tchk, int m, int n_tiles, int n_tiles_x, int tile_w,
+                  int cap, int chunk, float bg) {
+  __shared__ Chunk s;
+  const int g = blockIdx.x;            // grid step (f * T + u) * 2 + v
+  const int d = g >> 1;                // data tile row f * T + u
+  const int v = g & 1;                 // 0: forward view, 1: flip view
+  const int f = d / n_tiles;
+  const int u = d - f * n_tiles;
+  const int tx = u % n_tiles_x;
+  const int out_row = (2 * f + v) * n_tiles + (v ? u + (n_tiles_x - 1) - 2 * tx : u);
+  const int p_pix = blockDim.x * PPT;
+  const int tile_h = p_pix / tile_w;
+  const float* rows = attrs + static_cast<size_t>(f) * m * 9;
+  const int* list = lists + static_cast<size_t>(d) * cap;
+  const float cx = static_cast<float>(tx * tile_w) + (tile_w - 1) / 2.0f;
+  const float cy = static_cast<float>((u / n_tiles_x) * tile_h) + (tile_h - 1) / 2.0f;
+  const int n_chunks = cap / chunk;
+  const int n_used = min((counts[d] + chunk - 1) / chunk, n_chunks);
+  float* tc = tchk + static_cast<size_t>(out_row) * (n_chunks + 1) * p_pix;
+
+  float xs[PPT], ys[PPT], t[PPT], acc[PPT][3];
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const int lin = threadIdx.x + k * blockDim.x;
+    const float x = static_cast<float>(lin % tile_w) - (tile_w - 1) / 2.0f;
+    xs[k] = v ? -x : x;
+    ys[k] = static_cast<float>(lin / tile_w) - (tile_h - 1) / 2.0f;
+    t[k] = 1.0f;
+    acc[k][0] = acc[k][1] = acc[k][2] = 0.0f;
+  }
+
+  int p = 0;
+  for (; p < n_used; ++p) {
+    int live = 0;
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) live |= t[k] >= kTEps;
+    if (!__syncthreads_or(live)) break;  // also: stage reads of chunk p-1 are done
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) tc[p * p_pix + threadIdx.x + k * blockDim.x] = t[k];
+    load_chunk(s, rows, list, v ? n_used - 1 - p : p, chunk, m, cx, cy);
+    __syncthreads();
+    float e[PPT];
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) e[k] = 1.0f;
+    for (int j = 0; j < chunk; ++j) {
+      const int i = v ? chunk - 1 - j : j;
+      const float cr = s.r[i], cg = s.g[i], cb = s.b[i];
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        const float a = alpha_at(s, i, xs[k], ys[k]).a;
+        const float tb = t[k] * e[k];
+        if (tb >= kTEps) {
+          const float w = a * tb;
+          acc[k][0] += w * cr;
+          acc[k][1] += w * cg;
+          acc[k][2] += w * cb;
+        }
+        e[k] *= 1.0f - a;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) t[k] *= e[k];
+  }
+
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const int lin = threadIdx.x + k * blockDim.x;
+    for (int q = p; q <= n_chunks; ++q) tc[q * p_pix + lin] = t[k];
+    float* o = out + static_cast<size_t>(out_row) * 4 * p_pix;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) o[c * p_pix + lin] = acc[k][c] + t[k] * bg;
+    o[3 * p_pix + lin] = t[k];
+  }
+}
+
+}  // namespace
+
+// Launches one block per (data tile, view) step on `stream`: 2 * n_frames * n_tiles
+// blocks.  Pointers are device pointers: attrs [n_frames, m, 9] f32, lists
+// [n_frames * n_tiles, cap] i32 (-1 padded), counts [n_frames * n_tiles] i32,
+// out [2 * n_frames * n_tiles, 4, threads * ppt] f32,
+// tchk [2 * n_frames * n_tiles, cap / chunk + 1, threads * ppt] f32.
+// Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int mirror_forward(const float* attrs, const int* lists, const int* counts,
+                              float* out, float* tchk, int n_frames, int m, int n_tiles,
+                              int n_tiles_x, int tile_w, int cap, int chunk, int threads,
+                              int ppt, float bg, void* stream) {
+  if (chunk <= 0 || chunk > kMaxChunk || cap % chunk != 0 || threads <= 0 ||
+      threads > kMaxThreads || tile_w <= 0 || (threads * ppt) % tile_w != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = 2 * n_frames * n_tiles;
+  if (blocks == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define GSVC_MIRROR_FWD_LAUNCH(P)                                                  \
+  mirror_fwd_kernel<P><<<blocks, threads, 0, st>>>(attrs, lists, counts, out, tchk, \
+                                                   m, n_tiles, n_tiles_x, tile_w,  \
+                                                   cap, chunk, bg)
+  switch (ppt) {
+    case 1: GSVC_MIRROR_FWD_LAUNCH(1); break;
+    case 2: GSVC_MIRROR_FWD_LAUNCH(2); break;
+    case 4: GSVC_MIRROR_FWD_LAUNCH(4); break;
+    case 8: GSVC_MIRROR_FWD_LAUNCH(8); break;
+    case 16: GSVC_MIRROR_FWD_LAUNCH(16); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef GSVC_MIRROR_FWD_LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}

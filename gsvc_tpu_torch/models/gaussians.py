@@ -6,9 +6,10 @@ capacity with the anchors z-sorted over the live prefix (padding rows
 carry the z = 1e9 sentinel), exactly as in the JAX package, so a frame's
 Toast-like Sliding Window is one contiguous slice.
 
-Ported modes of ``generate_neural_gaussians``: FULL_PRECISION and
-DECODED (the decoder's), forward only.  The quantization-noise and
-entropy modes belong to the training slice.
+Ported modes of ``generate_neural_gaussians``: FULL_PRECISION (with
+gradients, through the straight-through anchor quantization and mask),
+QUANTIZED_NOISE and DECODED.  The entropy modes (ENTROPY, STE_ENTROPY)
+need the hash-grid context and belong to the next slice.
 
 Reference symbol map:
   activations                scene/gaussian_model.py:641-704
@@ -26,21 +27,24 @@ import torch
 
 from gsvc_tpu_torch.config import ModelConfig
 from gsvc_tpu_torch.models.mlps import (
-    deform_mlp, deform_mlp_shapes, entropy_params_net_shapes, generator_net,
+    deform_mlp, deform_mlp_init, deform_mlp_shapes, entropy_params_net_init,
+    entropy_params_net_shapes, generator_net, generator_net_init,
     generator_net_shapes,
 )
 from gsvc_tpu_torch.ops.embed import positional_embedder
 from gsvc_tpu_torch.ops.hashgrid import MixGridSpec, make_mix_grid_spec
+from gsvc_tpu_torch.ops.quant import (
+    _ste, quantize_anchor, uniform_noise_quantize,
+)
 
 # base quantization steps (reference: guassian.py:165-167)
 Q_FEAT = 1.0
 Q_SCALING = 0.001
 Q_OFFSETS = 0.2
 
-ANCHOR_ROUND_DIGITS = 16
-Q_ANCHOR = 1.0 / (2 ** ANCHOR_ROUND_DIGITS - 1)
-# symbol clamp half-range shared by the quantizers and the coder
-CLAMP_BOUND = 15_000
+NEXT_SLICE = ("the entropy phases (ENTROPY, STE_ENTROPY: hash-grid kernels "
+              "B3f/B3b and ops/entropy.py), the densify epoch and the "
+              "encode half of the codec are the next slice of the port")
 
 
 class GenerateMode(enum.IntEnum):
@@ -154,6 +158,7 @@ class GeneratedGaussians(NamedTuple):
     rot: torch.Tensor
     valid: torch.Tensor           # [V*K] bool
     neural_opacity: torch.Tensor  # [V*K, 1] pre-cull
+    anchor_xyz: torch.Tensor      # [V*K, 3] parent anchor position
     offsets_world: torch.Tensor   # [V*K, 3]
 
 
@@ -199,6 +204,109 @@ def net_params_template(cfg: GaussianConfig, device="cpu") -> NetParams:
     return NetParams(**{k: build(v) for k, v in shapes.items()})
 
 
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def mean_nn3_distance(points: np.ndarray) -> np.ndarray:
+    """Mean squared distance to the 3 nearest neighbours, per point
+    (replaces simple-knn ``distCUDA2``): exact 3-NN with a k-d tree in
+    float64 on the host, as the JAX package computes it."""
+    from scipy.spatial import cKDTree
+
+    pts = np.asarray(points, np.float64)
+    n = pts.shape[0]
+    if n <= 4:
+        if n < 2:
+            return np.full((n,), 1e-6, np.float32)
+        d2 = ((pts[:, None, :] - pts[None, :, :]) ** 2).sum(-1)
+        d2.sort(axis=1)
+        return d2[:, 1:min(4, n)].mean(axis=1).astype(np.float32)
+    dist, _ = cKDTree(pts).query(pts, k=4, workers=-1)
+    return (dist[:, 1:4] ** 2).mean(axis=1).astype(np.float32)
+
+
+def init_anchor_arrays(cfg: GaussianConfig, points: np.ndarray,
+                       capacity: int, voxel_size: float = 0.001):
+    """Host part of ``init_model`` (create_from_pcd,
+    scene/gaussian_model.py:754-800): voxelise, z-sort, scales from the
+    3-NN distance, zero offsets and features, all-ones masks, identity
+    rotations, opacity logit of 0.1, padded to ``capacity`` with the
+    z = 1e9 sentinel.  Returns (AnchorState fields as float32 numpy, n)."""
+    pts = np.unique(np.round(points / voxel_size), axis=0) * voxel_size
+    pts = pts.astype(np.float32)
+    n = pts.shape[0]
+    if n > capacity:
+        raise ValueError(f"capacity {capacity} < initial anchors {n}")
+    pts = pts[np.argsort(pts[:, 2], kind="stable")]
+    dist2 = np.maximum(mean_nn3_distance(pts), 1e-7)
+    scales = np.log(np.sqrt(dist2))[:, None].repeat(6, axis=1)
+    k, f = cfg.n_offsets, cfg.feat_dim
+
+    def pad(x):
+        out = np.zeros((capacity,) + x.shape[1:], np.float32)
+        out[:n] = x
+        return out
+
+    anchor = np.zeros((capacity, 3), np.float32)
+    anchor[:n] = pts
+    anchor[n:, 2] = 1e9  # padding sorts past every real z
+    rots = np.zeros((n, 4), np.float32)
+    rots[:, 0] = 1.0
+    opacity_logit = float(np.log(0.1 / 0.9))
+    fields = dict(
+        anchor=anchor,
+        feat=pad(np.zeros((n, f), np.float32)),
+        offset=pad(np.zeros((n, k, 3), np.float32)),
+        mask=pad(np.ones((n, k, 1), np.float32)),
+        scaling=pad(scales),
+        rotation=pad(rots),
+        opacity=pad(np.full((n, 1), opacity_logit, np.float32)))
+    return fields, n
+
+
+def init_model(gen: torch.Generator, cfg: GaussianConfig,
+               points: np.ndarray, capacity: int, voxel_size: float = 0.001,
+               device="cpu") -> ModelState:
+    """A ModelState from an initial point cloud (port of ``init_model``).
+
+    The anchor arrays equal the JAX package's exactly; the network
+    weights are drawn from ``gen`` with the JAX distributions (hash table
+    U(-1e-4, 1e-4), linears U(+-1/sqrt(fan_in))) in the JAX order."""
+    fields, n = init_anchor_arrays(cfg, points, capacity, voxel_size)
+    anchors = AnchorState(**{k: torch.from_numpy(v).to(device)
+                             for k, v in fields.items()})
+    fd, k = cfg.feat_dim, cfg.n_offsets
+    inner, cond, grid_out = fd * 2, cfg.pe_dim, cfg.grid.output_dim
+    hash_table = (torch.rand((cfg.grid.total_rows, cfg.grid.n_features),
+                             generator=gen, device=device) * 2.0 - 1.0) * 1e-4
+    nets = NetParams(
+        hash_table=hash_table,
+        mlp_opacity=generator_net_init(gen, fd, k, inner, cond, device),
+        mlp_cov=generator_net_init(gen, fd, 7 * k, inner, cond, device),
+        mlp_color=generator_net_init(gen, fd, 3 * k, inner, cond, device),
+        mlp_deform=deform_mlp_init(gen, fd + cond, fd * 2, 3 * k, device),
+        mlp_feature_enet=entropy_params_net_init(
+            gen, grid_out, fd * 3, fd, fd, device=device),
+        mlp_scaling_enet=entropy_params_net_init(
+            gen, grid_out, fd * 2, fd, 6, layer=3, device=device),
+        mlp_offset_enet=entropy_params_net_init(
+            gen, grid_out, fd * 3, fd, 3 * k, device=device))
+    return ModelState(
+        anchors=anchors, nets=nets, n_active=n,
+        x_bound_min=torch.zeros((1, 3), device=device),
+        x_bound_max=torch.ones((1, 3), device=device))
+
+
+def update_anchor_bound(state: ModelState, x_lim, y_lim, z_lim,
+                        bleed: float = 0.1) -> ModelState:
+    """The learned-bounds box from the video's NDC extents + bleed."""
+    lo, hi = anchor_bounds(x_lim, y_lim, z_lim, bleed)
+    dev = state.x_bound_min.device
+    return state._replace(x_bound_min=torch.from_numpy(lo).to(dev),
+                          x_bound_max=torch.from_numpy(hi).to(dev))
+
+
 def anchor_bounds(x_lim: float, y_lim: float, z_lim: float,
                   bleed: float = 0.1):
     """Learned-bounds box from the video's NDC extents + bleed
@@ -228,29 +336,28 @@ def get_scaling(anchors: AnchorState, decoded: bool = False):
 
 
 def get_mask(anchors: AnchorState, decoded: bool = False):
-    """Binary gaussian mask: sigmoid(mask) > 0.01 (the forward value of
-    the JAX straight-through estimator), or the decoded bits."""
+    """Binary gaussian mask, or the decoded bits.  Undecoded: exactly
+    ``sigmoid(mask) > 0.01`` forward with the sigmoid's gradient
+    (straight-through, ``gsvc_tpu/models/gaussians.py:get_mask``)."""
     if decoded:
         return anchors.mask
-    return (torch.sigmoid(anchors.mask) > 0.01).to(anchors.mask.dtype)
+    s = torch.sigmoid(anchors.mask)
+    return _ste((s > 0.01).to(s.dtype), s)
 
 
 def get_mask_anchor(anchors: AnchorState, decoded: bool = False):
     """[N] bool — anchor has at least one unmasked gaussian."""
-    return get_mask(anchors, decoded)[:, :, 0].sum(dim=1) > 0
+    return (get_mask(anchors, decoded)[:, :, 0].sum(dim=1) > 0).detach()
 
 
 def get_anchor(state: ModelState, decoded: bool = False):
     """Anchor positions; undecoded ones go through the 16-bit-per-axis
-    quantization (Quantize_anchor, utils/encodings.py:452-465)."""
-    a = state.anchors.anchor
+    quantization with a straight-through gradient (Quantize_anchor,
+    utils/encodings.py:452-465)."""
     if decoded:
-        return a
-    lo, hi = state.x_bound_min, state.x_bound_max
-    interval = (hi - lo) * Q_ANCHOR + 1e-6
-    q = torch.clamp(torch.floor((a - lo) / interval),
-                    0, 2 ** ANCHOR_ROUND_DIGITS - 1)
-    return q * interval + lo
+        return state.anchors.anchor
+    return quantize_anchor(state.anchors.anchor, state.x_bound_min,
+                           state.x_bound_max)
 
 
 # ---------------------------------------------------------------------------
@@ -281,13 +388,18 @@ def generate_neural_gaussians(
     state: ModelState, cfg: GaussianConfig, frame_z: float, cam_z: float,
     window_start: int, in_window: torch.Tensor, cap: int,
     mode: GenerateMode = GenerateMode.DECODED, decoded: bool = True,
+    generator: Optional[torch.Generator] = None, noise=None,
 ) -> GeneratedGaussians:
     """Per-gaussian splat inputs for one frame window (guassian.py:134-310),
     static-shape form: culled gaussians keep their rows with opacity 0 and
-    valid=False."""
-    if mode not in (GenerateMode.FULL_PRECISION, GenerateMode.DECODED):
-        raise NotImplementedError(
-            f"{mode.name} generation is not ported (training slice)")
+    valid=False.
+
+    QUANTIZED_NOISE adds uniform quantization noise to the window's
+    features, scales and offsets, drawn from ``generator`` — or taken
+    from ``noise``, a (feat [V, F], scaling [V, 6], offsets [V, K, 3])
+    tuple of U[-0.5, 0.5) draws (tests inject the JAX key's)."""
+    if mode in (GenerateMode.ENTROPY, GenerateMode.STE_ENTROPY):
+        raise NotImplementedError(f"{mode.name} generation: {NEXT_SLICE}")
     k = cfg.n_offsets
     anchors = state.anchors
     sl = slice(window_start, window_start + cap)
@@ -295,8 +407,22 @@ def generate_neural_gaussians(
     anchor_w = get_anchor(state, decoded)[sl]                    # [V, 3]
     feat = anchors.feat[sl]                                      # [V, F]
     grid_offsets = anchors.offset[sl]                            # [V, K, 3]
-    grid_scaling = get_scaling(anchors, decoded)[sl]             # [V, 6]
+    all_scaling = get_scaling(anchors, decoded)
+    grid_scaling = all_scaling[sl]                               # [V, 6]
     binary_mask = get_mask(anchors, decoded)[sl]                 # [V, K, 1]
+
+    if mode == GenerateMode.QUANTIZED_NOISE:
+        # clamp centres: whole-model means, gradient-free
+        n_feat, n_scal, n_off = noise if noise is not None else (None,) * 3
+        feat = uniform_noise_quantize(
+            feat, Q_FEAT, generator, x_mean=anchors.feat.mean().detach(),
+            noise=n_feat)
+        grid_scaling = uniform_noise_quantize(
+            grid_scaling, Q_SCALING, generator,
+            x_mean=all_scaling.mean().detach(), noise=n_scal)
+        grid_offsets = uniform_noise_quantize(
+            grid_offsets, Q_OFFSETS, generator,
+            x_mean=anchors.offset.mean().detach(), noise=n_off)
 
     # conditions: embed(cam_z) and embed(anchor_z - cam_z)
     embed_time, _ = positional_embedder(cfg.time_multi_res, 1)
@@ -341,4 +467,5 @@ def generate_neural_gaussians(
         opacity=torch.where(g_valid[:, None], neural_opacity,
                             torch.zeros_like(neural_opacity)),
         scaling=scaling_g, rot=rot_g, valid=g_valid,
-        neural_opacity=neural_opacity, offsets_world=offsets_world)
+        neural_opacity=neural_opacity, anchor_xyz=anchor_rep,
+        offsets_world=offsets_world)

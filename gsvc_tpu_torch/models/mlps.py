@@ -10,10 +10,16 @@ Architecture parity with the reference (scene/gaussian_model.py):
 Weights stay in the JAX package's layout — ``{"w": [in, out], "b":
 [out]}`` per linear — so decoded and carried-over parameter trees map
 leaf for leaf.  GELU is the tanh form (``jax.nn.gelu``'s default).
+
+The ``*_init`` functions draw every weight and bias from
+U(-1/sqrt(in), 1/sqrt(in)) with a ``torch.Generator`` — the JAX
+package's distributions and shapes; the numbers differ from JAX's
+threefry draws, so tests carry states over instead of re-drawing them.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -24,6 +30,26 @@ def _gelu(x):
 
 def linear_shape(in_dim: int, out_dim: int) -> dict:
     return {"w": (in_dim, out_dim), "b": (out_dim,)}
+
+
+def _uniform(shape, bound: float, gen: torch.Generator, device):
+    return (torch.rand(shape, generator=gen, dtype=torch.float32,
+                       device=device) * 2.0 - 1.0) * bound
+
+
+def linear_init(gen: torch.Generator, in_dim: int, out_dim: int,
+                device="cpu") -> dict:
+    bound = 1.0 / float(np.sqrt(np.float32(in_dim)))
+    return {"w": _uniform((in_dim, out_dim), bound, gen, device),
+            "b": _uniform((out_dim,), bound, gen, device)}
+
+
+def init_from_shapes(gen: torch.Generator, shapes: dict,
+                     device="cpu") -> dict:
+    """Initialise a nested dict of ``linear_shape`` entries in key order."""
+    if set(shapes) == {"w", "b"}:
+        return linear_init(gen, shapes["w"][0], shapes["w"][1], device)
+    return {k: init_from_shapes(gen, v, device) for k, v in shapes.items()}
 
 
 def linear(p, x):
@@ -55,6 +81,13 @@ def generator_net_shapes(input_dim: int, output_dim: int, inner_dim: int,
     }
 
 
+def generator_net_init(gen: torch.Generator, input_dim: int,
+                       output_dim: int, inner_dim: int, condition_dim: int,
+                       device="cpu") -> dict:
+    return init_from_shapes(gen, generator_net_shapes(
+        input_dim, output_dim, inner_dim, condition_dim), device)
+
+
 def generator_net(p, feature, condition, out_act=None):
     h = _gelu(linear(p["linear1"], feature))
     h = linear(p["linear2"], h)
@@ -79,6 +112,14 @@ def entropy_params_net_shapes(input_dim: int, inner_dim: int,
     return p
 
 
+def entropy_params_net_init(gen: torch.Generator, input_dim: int,
+                            inner_dim: int, inner_dim2: int,
+                            output_dim: int, layer: int = 2,
+                            device="cpu") -> dict:
+    return init_from_shapes(gen, entropy_params_net_shapes(
+        input_dim, inner_dim, inner_dim2, output_dim, layer), device)
+
+
 def entropy_params_net(p, x):
     h = _gelu(linear(p["dist0"], x))
     if "dist1" in p:
@@ -96,6 +137,12 @@ def deform_mlp_shapes(input_dim: int, hidden: int, output_dim: int) -> dict:
         "l3": linear_shape(hidden, hidden),
         "out": linear_shape(hidden, output_dim),
     }
+
+
+def deform_mlp_init(gen: torch.Generator, input_dim: int, hidden: int,
+                    output_dim: int, device="cpu") -> dict:
+    return init_from_shapes(gen, deform_mlp_shapes(input_dim, hidden,
+                                                   output_dim), device)
 
 
 def deform_mlp(p, x):

@@ -34,8 +34,9 @@ from gsvc_tpu_torch.render.splat import (
     ALPHA_MAX, ALPHA_MIN, T_EPS, RasterSettings, assemble_views,
 )
 
-# kernel limits (csrc/bidir.cu): a chunk fits its shared-memory stage and
-# every thread of a block owns the same number of a tile's pixels
+# kernel limits (csrc/composite.cuh, shared by B1, B2 and B4): a chunk
+# fits the shared-memory stage and every thread of a block owns the same
+# number of a tile's pixels
 MAX_CHUNK = 128
 MAX_PIXELS_PER_THREAD = 16
 BLOCK_THREADS = 256
@@ -69,7 +70,7 @@ def _kernel_shape(settings: RasterSettings):
     if (settings.chunk > MAX_CHUNK or p_pix % threads
             or ppt > MAX_PIXELS_PER_THREAD or ppt & (ppt - 1)):
         raise ValueError(
-            f"the bidir kernel takes chunk <= {MAX_CHUNK} and tiles of "
+            f"the compositing kernels take chunk <= {MAX_CHUNK} and tiles of "
             f"{BLOCK_THREADS} x 2^k pixels (k <= 4); got chunk "
             f"{settings.chunk}, tile {settings.tile_h}x{settings.tile_w}")
     return threads, ppt

@@ -1,0 +1,482 @@
+"""Mirror-view compositing for training — kernels B1 (forward) and B2
+(backward) of the port, their plain PyTorch versions, and the autograd
+function ``mirror_composite_attrs`` around them.
+
+Port of the mirror half of ``gsvc_tpu/render/pallas_splat.py``
+(``_fwd_kernel_mirror`` :636, ``_bwd_kernel_mirror`` :699,
+``mirror_composite_attrs`` / ``_mca_bwd`` :936-1037).
+
+The x-flipped view of a frame is composited straight from the FORWARD
+view's tile lists: its lists are the mirror tiles with the depth order
+reversed, and its attribute transform (mux' = (W-1) - mux, conic b' = -b)
+cancels against the mirrored pixel coordinate, so a flip view reads the
+data tile u, evaluates alpha at negated tile-centred x and walks the
+chunks (and the copies inside each chunk) back to front, writing the
+output tile mirror(u).  One step per (data tile, view):
+``g = (f*T + u)*2 + v``; output rows are in view order (f0 fwd, f0 flip,
+f1 fwd, f1 flip), ``row = (2f + v)*T + (mirror(u) if v else u)``.
+
+The forward saves ``t_chk [2F*T, n_chunks + 1, P]``: the transmittance
+before every COMPOSITE position (view-direction agnostic), positions after
+the early stop filled with the final T, slot ``n_chunks`` the exact final
+T.  The backward replays the chunks in reverse from ``p_hot`` (the last
+position with a live pixel) with a suffix accumulator seeded by
+``t_final * (bg * sum(g_rgb) + g_T)``, and gives each (view, copy) its 9
+attribute gradients — mean x/y, conic a/b/c, opacity, rgb — in the
+[2F*T, 9, cap] layout of the grid.  The mean and conic gradients come
+from six pixel sums of dL/dq times (1, d0, d1, d0^2, d0 d1, d1^2), with
+d = pixel - mean: the TPU kernel's pixel-basis moments taken about the
+gaussian's mean instead of the tile centre, so the fp32 cancellation of
+the moment algebra never happens.
+
+The scatter of per-copy gradients into ``[F, M, 9]`` rows (and the four
+per-view mean columns when ``m2d`` is given) is one ``index_add_`` after
+the kernel, as the JAX package leaves it to XLA: the kernel's output
+stays deterministic and comparable copy by copy with the plain version,
+and the scatter moves 4.7 bytes per copy-column, far below the kernel's
+arithmetic.  (``_chunked_row_scatter`` is a TPU memory workaround and is
+not carried over.)
+
+Only float32 compositing is ported: ``compute_dtype`` and ``matmul_dtype``
+other than float32 are TPU MXU precision policies and raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from gsvc_tpu_torch.build import load
+from gsvc_tpu_torch.render.bidir import _check_inputs, _kernel_shape
+from gsvc_tpu_torch.render.splat import (
+    ALPHA_MAX, ALPHA_MIN, T_EPS, RasterSettings,
+)
+
+# grid rows per batch of the plain versions (bounds their [rows, chunk, P]
+# temporaries: ~0.5 GB each at P = 1024)
+PLAIN_BATCH = 1024
+
+
+def check_inputs(settings: RasterSettings, attrs, tile_lists, counts):
+    """Validate the composite's inputs (B4's checks plus float32 and a
+    tile-aligned width); returns F (frames)."""
+    if settings.compute_dtype != "float32" or \
+            settings.matmul_dtype != "float32":
+        raise ValueError(
+            "the port composites in float32 only; compute_dtype "
+            f"{settings.compute_dtype!r} / matmul_dtype "
+            f"{settings.matmul_dtype!r} are TPU MXU precision policies")
+    if settings.image_width != settings.n_tiles_x * settings.tile_w:
+        raise ValueError(
+            f"the mirror composite needs a tile-aligned width: "
+            f"{settings.image_width} is not a multiple of tile_w "
+            f"{settings.tile_w}")
+    _check_inputs(settings, attrs, tile_lists, counts)
+    return attrs.shape[0]
+
+
+def grid_rows(settings: RasterSettings, f_n: int, device):
+    """Per grid step g of 2F*T: (data row f*T + u, view v, output row)."""
+    t_n, ntx = settings.n_tiles, settings.n_tiles_x
+    g = torch.arange(2 * f_n * t_n, device=device)
+    d, v = g // 2, g % 2
+    f, u = d // t_n, d % t_n
+    mirror_u = u + (ntx - 1) - 2 * (u % ntx)
+    out_row = (2 * f + v) * t_n + torch.where(v == 1, mirror_u, u)
+    return d, v, out_row
+
+
+# ---------------------------------------------------------------------------
+# Kernel launchers (CUDA tensors)
+# ---------------------------------------------------------------------------
+
+def _lib(name: str, fn_name: str, n_ptrs: int):
+    fn = getattr(load(name), fn_name)
+    if fn.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.restype = ci
+        fn.argtypes = [vp] * n_ptrs + [ci] * 9 + [ctypes.c_float, vp]
+    return fn
+
+
+def _require_contiguous(**tensors):
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor")
+
+
+def _launch(fn, settings, f_n, m, ptrs, device):
+    threads, ppt = _kernel_shape(settings)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*ptrs, f_n, m, settings.n_tiles, settings.n_tiles_x,
+                 settings.tile_w, settings.gaussian_cap, settings.chunk,
+                 threads, ppt, float(settings.bg), stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
+
+
+def mirror_fwd_cuda(settings: RasterSettings, attrs, tile_lists, counts):
+    """Launch kernel B1 once.  Returns (out4 [2F*T, 4, P], t_chk
+    [2F*T, n_chunks + 1, P]), rows in output (view) order."""
+    f_n = check_inputs(settings, attrs, tile_lists, counts)
+    _require_contiguous(attrs=attrs, tile_lists=tile_lists, counts=counts)
+    p_pix = settings.tile_h * settings.tile_w
+    n_grid = 2 * f_n * settings.n_tiles
+    n_chunks = settings.gaussian_cap // settings.chunk
+    out4 = torch.empty((n_grid, 4, p_pix), dtype=torch.float32,
+                       device=attrs.device)
+    t_chk = torch.empty((n_grid, n_chunks + 1, p_pix), dtype=torch.float32,
+                        device=attrs.device)
+    _launch(_lib("mirror_fwd", "mirror_forward", 5), settings, f_n,
+            attrs.shape[1],
+            (attrs.data_ptr(), tile_lists.data_ptr(), counts.data_ptr(),
+             out4.data_ptr(), t_chk.data_ptr()), attrs.device)
+    return out4, t_chk
+
+
+def mirror_bwd_cuda(settings: RasterSettings, attrs, tile_lists, counts,
+                    t_chk, g_out):
+    """Launch kernel B2 once.  Returns per-copy gradients [2F*T, 9, cap]
+    in grid order (rows g = (f*T + u)*2 + v)."""
+    f_n = check_inputs(settings, attrs, tile_lists, counts)
+    p_pix = settings.tile_h * settings.tile_w
+    n_grid = 2 * f_n * settings.n_tiles
+    n_chunks = settings.gaussian_cap // settings.chunk
+    for name, t, shape in (("t_chk", t_chk, (n_grid, n_chunks + 1, p_pix)),
+                           ("g_out", g_out, (n_grid, 4, p_pix))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected float32 {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    _require_contiguous(attrs=attrs, tile_lists=tile_lists, counts=counts,
+                        t_chk=t_chk, g_out=g_out)
+    grads = torch.empty((n_grid, 9, settings.gaussian_cap),
+                        dtype=torch.float32, device=attrs.device)
+    _launch(_lib("mirror_bwd", "mirror_backward", 6), settings, f_n,
+            attrs.shape[1],
+            (attrs.data_ptr(), tile_lists.data_ptr(), counts.data_ptr(),
+             t_chk.data_ptr(), g_out.data_ptr(), grads.data_ptr()),
+            attrs.device)
+    return grads
+
+
+# ---------------------------------------------------------------------------
+# Wrappers: kernel on CUDA tensors, plain version on CPU tensors
+# ---------------------------------------------------------------------------
+
+def mirror_forward(settings: RasterSettings, attrs, tile_lists, counts):
+    """(out4, t_chk) of the mirror composite.  CUDA tensors launch kernel
+    B1 (and add one to ``mirror_forward.launches``); CPU tensors take the
+    plain version; any other device raises."""
+    if attrs.is_cuda:
+        res = mirror_fwd_cuda(settings, attrs, tile_lists, counts)
+        mirror_forward.launches += 1
+        return res
+    if attrs.device.type == "cpu":
+        out4, t_chk, _ = mirror_fwd_plain(settings, attrs, tile_lists,
+                                          counts)
+        return out4, t_chk
+    raise ValueError(f"mirror_forward: unsupported device {attrs.device}")
+
+
+mirror_forward.launches = 0
+
+
+def mirror_backward(settings: RasterSettings, attrs, tile_lists, counts,
+                    t_chk, g_out):
+    """Per-copy gradients [2F*T, 9, cap] (grid order).  CUDA tensors
+    launch kernel B2 (and add one to ``mirror_backward.launches``); CPU
+    tensors take the plain version; any other device raises."""
+    if attrs.is_cuda:
+        res = mirror_bwd_cuda(settings, attrs, tile_lists, counts, t_chk,
+                              g_out)
+        mirror_backward.launches += 1
+        return res
+    if attrs.device.type == "cpu":
+        grads, _ = mirror_bwd_plain(settings, attrs, tile_lists, counts,
+                                    t_chk, g_out)
+        return grads
+    raise ValueError(f"mirror_backward: unsupported device {attrs.device}")
+
+
+mirror_backward.launches = 0
+
+
+def scatter_grads(settings: RasterSettings, grads, tile_lists, m: int,
+                  per_view: bool):
+    """Per-copy gradients [2F*T, 9, cap] (grid order) -> (d_attrs
+    [F, M, 9], d_m2d [2F, M, 2] or None) by one ``index_add_``.
+
+    The two views of a copy add into its 9 attribute columns; with
+    ``per_view`` each view's mean columns also go to its own m2d rows —
+    the flip view's screen x is mirrored, so its x gradient is negated."""
+    f_n, t_n, cap = tile_lists.shape
+    g5 = grads.reshape(f_n, t_n, 2, 9, cap)
+    v0, v1 = g5[:, :, 0], g5[:, :, 1]                    # [F, T, 9, cap]
+    cols = [v0 + v1]
+    if per_view:
+        cols.append(torch.stack([v0[:, :, 0], v0[:, :, 1], -v1[:, :, 0],
+                                 v1[:, :, 1]], dim=2))
+    src = torch.cat(cols, dim=2).permute(0, 1, 3, 2)     # [F, T, cap, C]
+    n_cols = src.shape[-1]
+    frame = torch.arange(f_n, device=grads.device)[:, None, None] * m
+    ids = (tile_lists.clamp_min(0).long() + frame).reshape(-1)
+    # padding slots carry zero gradients (zero opacity), so they may land
+    # on row 0 of their frame
+    out = torch.zeros((f_n * m, n_cols), dtype=grads.dtype,
+                      device=grads.device)
+    out.index_add_(0, ids, src.reshape(-1, n_cols))
+    out = out.reshape(f_n, m, n_cols)
+    d_attrs = out[..., :9]
+    if not per_view:
+        return d_attrs, None
+    d_m2d = out[..., 9:13].reshape(f_n, m, 2, 2).permute(0, 2, 1, 3)
+    return d_attrs, d_m2d.reshape(2 * f_n, m, 2)
+
+
+class _MirrorComposite(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, settings, attrs, tile_lists, counts, m2d, timer):
+        if m2d is not None:
+            # the forward views' zero tensors join the mean columns; their
+            # cotangents (and the flip views') come out of the backward
+            attrs = torch.cat([attrs[..., :2] + m2d[0::2], attrs[..., 2:]],
+                              dim=-1)
+        attrs = attrs.contiguous()
+        if timer is not None:
+            timer.mark("b1_start")
+        out4, t_chk = mirror_forward(settings, attrs, tile_lists, counts)
+        if timer is not None:
+            timer.mark("b1_end")
+        ctx.settings, ctx.timer = settings, timer
+        ctx.per_view = m2d is not None
+        ctx.save_for_backward(attrs, tile_lists, counts, t_chk)
+        return out4
+
+    @staticmethod
+    def backward(ctx, g_out):
+        attrs, tile_lists, counts, t_chk = ctx.saved_tensors
+        timer = ctx.timer
+        if timer is not None:
+            timer.mark("b2_start")
+        grads = mirror_backward(ctx.settings, attrs, tile_lists, counts,
+                                t_chk, g_out.contiguous())
+        d_attrs, d_m2d = scatter_grads(ctx.settings, grads, tile_lists,
+                                       attrs.shape[1], ctx.per_view)
+        if timer is not None:
+            timer.mark("b2_end")
+        return None, d_attrs, None, None, d_m2d, None
+
+
+def mirror_composite_attrs(settings: RasterSettings, attrs, tile_lists,
+                           counts, m2d=None, timer=None):
+    """Composite 2F views (forward + x-mirror per frame) straight from the
+    per-gaussian attribute rows, differentiably.
+
+    attrs [F, M, 9] float32 (``attr_rows_from_proj`` packing),
+    tile_lists [F, T, cap] int32 (-1 padded), counts [F, T] int32,
+    m2d [2F, M, 2] (normally zeros; its gradient is each view's screen
+    gradient of the means) or None.  Returns out4 [2F*T, 4, P] in view
+    order.  ``timer`` (optional, with ``mark(name)``) is marked around
+    each kernel: b1_start/b1_end, b2_start/b2_end (B2 with the scatter)."""
+    check_inputs(settings, attrs, tile_lists, counts)
+    return _MirrorComposite.apply(settings, attrs, tile_lists, counts, m2d,
+                                  timer)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+class _Tiles:
+    """Per-grid-row geometry and gathered attribute rows of a batch."""
+
+    def __init__(self, settings, attrs, tile_lists, counts, sel):
+        f_n, m, _ = attrs.shape
+        t_n, cap = settings.n_tiles, settings.gaussian_cap
+        th, tw = settings.tile_h, settings.tile_w
+        dev = attrs.device
+        d_all, v_all, out_all = grid_rows(settings, f_n, dev)
+        d, self.v, self.out_row = d_all[sel], v_all[sel], out_all[sel]
+        u = d % t_n
+        lists = tile_lists.reshape(f_n * t_n, cap)[d].long()
+        self.cx = ((u % settings.n_tiles_x) * tw).float() + (tw - 1) / 2.0
+        self.cy = ((u // settings.n_tiles_x) * th).float() + (th - 1) / 2.0
+        lin = torch.arange(th * tw, device=dev)
+        xs = (lin % tw).float() - (tw - 1) / 2.0
+        self.ys = (lin // tw).float() - (th - 1) / 2.0
+        self.xs = torch.where(self.v[:, None] == 1, -xs, xs)   # [S, P]
+        self.n_chunks = cap // settings.chunk
+        cnt = counts.reshape(-1)[d].long()
+        self.cnt = cnt
+        self.n_used = torch.clamp((cnt + settings.chunk - 1)
+                                  // settings.chunk, max=self.n_chunks)
+        self.rows = attrs.reshape(f_n * m, 9)[
+            (d // t_n)[:, None] * m + lists.clamp_min(0)]   # [S, cap, 9]
+        self.valid = lists >= 0
+        self.chunk = settings.chunk
+
+    def chunk_of(self, p, idx):
+        """Data chunk at composite position p for rows ``idx`` (batch
+        indices); flip views walk the chunks from the last used one."""
+        rev = self.v[idx] == 1
+        return torch.where(rev, self.n_used[idx] - 1 - p,
+                           torch.full_like(rev, p, dtype=torch.long))
+
+    def load(self, p, idx):
+        """Chunk at position p for rows ``idx``, in COMPOSITE order:
+        (slot index [S, C], alpha, act, d0, d1 [S, C, P], attribute
+        rows [S, C, 9])."""
+        c = self.chunk_of(p, idx)
+        j = torch.arange(self.chunk, device=c.device)
+        rev = (self.v[idx] == 1)[:, None]
+        order = torch.where(rev, self.chunk - 1 - j, j)
+        slot = c[:, None] * self.chunk + order                 # [S, C]
+        r = torch.gather(self.rows[idx], 1,
+                         slot[..., None].expand(-1, -1, 9))
+        op = torch.where(torch.gather(self.valid[idx], 1, slot),
+                         r[..., 5], torch.zeros_like(r[..., 5]))
+        mu_x = r[..., 0] - self.cx[idx, None]
+        mu_y = r[..., 1] - self.cy[idx, None]
+        d0 = self.xs[idx, None, :] - mu_x[..., None]
+        d1 = self.ys[None, None, :] - mu_y[..., None]
+        ha, hb, hc = (-0.5 * r[..., 2:3], -0.5 * r[..., 3:4],
+                      -0.5 * r[..., 4:5])
+        uu = ha * d0 + hb * d1
+        vv = hb * d0 + hc * d1
+        raw = op[..., None] * torch.exp(d0 * uu + d1 * vv)
+        alpha = torch.clamp(raw, max=ALPHA_MAX)
+        ge_min = alpha >= ALPHA_MIN
+        alpha = torch.where(ge_min, alpha, torch.zeros_like(alpha))
+        act = ge_min & (raw < ALPHA_MAX)
+        r = torch.cat([r[..., :5], op[..., None], r[..., 6:]], dim=-1)
+        return slot, alpha, act, d0, d1, r
+
+    def real_copies(self, p, idx):
+        c = self.chunk_of(p, idx)
+        return torch.clamp(self.cnt[idx] - c * self.chunk, 0, self.chunk)
+
+
+def _excl_cumprod(x: torch.Tensor):
+    """(exclusive product along dim 1, total product): the in-chunk
+    running product the kernels keep per pixel."""
+    incl = torch.cumprod(x, dim=1)
+    return (torch.cat([torch.ones_like(incl[:, :1]), incl[:, :-1]], dim=1),
+            incl[:, -1])
+
+
+def mirror_fwd_plain(settings: RasterSettings, attrs, tile_lists, counts):
+    """Kernel B1's function in plain PyTorch: grid rows batched, chunk by
+    chunk, with the kernel's per-row loop stops as masks.  Returns
+    (out4, t_chk, evaluated (copy, pixel) pairs of real copies)."""
+    f_n = check_inputs(settings, attrs, tile_lists, counts)
+    p_pix = settings.tile_h * settings.tile_w
+    n_grid = 2 * f_n * settings.n_tiles
+    n_chunks = settings.gaussian_cap // settings.chunk
+    dev = attrs.device
+    out4 = torch.empty((n_grid, 4, p_pix), dtype=torch.float32, device=dev)
+    t_chk = torch.empty((n_grid, n_chunks + 1, p_pix), dtype=torch.float32,
+                        device=dev)
+    pairs = 0
+    for b0 in range(0, n_grid, PLAIN_BATCH):
+        sel = torch.arange(b0, min(b0 + PLAIN_BATCH, n_grid), device=dev)
+        tl = _Tiles(settings, attrs, tile_lists, counts, sel)
+        s_n = sel.numel()
+        t = torch.ones(s_n, p_pix, device=dev)
+        acc = torch.zeros(s_n, 3, p_pix, device=dev)
+        chk = torch.empty(s_n, n_chunks + 1, p_pix, device=dev)
+        alive = torch.ones(s_n, dtype=torch.bool, device=dev)
+        for p in range(n_chunks):
+            # position p runs while p < n_used and some pixel keeps
+            # T >= T_EPS; stopped rows keep their final T
+            chk[:, p] = t
+            alive &= (p < tl.n_used) & (t.amax(dim=1) >= T_EPS)
+            idx = alive.nonzero().squeeze(1)
+            if idx.numel() == 0:
+                chk[:, p + 1:n_chunks] = t[:, None]
+                break
+            _, alpha, _, _, _, r = tl.load(p, idx)
+            excl, chunk_t = _excl_cumprod(1.0 - alpha)
+            t_before = t[idx, None, :] * excl
+            w = torch.where(t_before >= T_EPS, alpha * t_before,
+                            torch.zeros_like(alpha))
+            acc[idx] += torch.bmm(r[..., 6:9].transpose(1, 2), w)
+            t[idx] = t[idx] * chunk_t
+            pairs += int(tl.real_copies(p, idx).sum())
+        chk[:, n_chunks] = t
+        out4[tl.out_row, 0:3] = acc + t[:, None] * settings.bg
+        out4[tl.out_row, 3] = t
+        t_chk[tl.out_row] = chk
+    return out4, t_chk, pairs * p_pix
+
+
+def mirror_bwd_plain(settings: RasterSettings, attrs, tile_lists, counts,
+                     t_chk, g_out):
+    """Kernel B2's function in plain PyTorch.  Returns (per-copy gradients
+    [2F*T, 9, cap] in grid order, evaluated (copy, pixel) pairs of real
+    copies)."""
+    f_n = check_inputs(settings, attrs, tile_lists, counts)
+    n_grid = 2 * f_n * settings.n_tiles
+    cap = settings.gaussian_cap
+    n_chunks = cap // settings.chunk
+    dev = attrs.device
+    grads = torch.zeros((n_grid, 9, cap), dtype=torch.float32, device=dev)
+    pairs = 0
+    for b0 in range(0, n_grid, PLAIN_BATCH):
+        sel = torch.arange(b0, min(b0 + PLAIN_BATCH, n_grid), device=dev)
+        tl = _Tiles(settings, attrs, tile_lists, counts, sel)
+        chk = t_chk[tl.out_row]                              # [S, n+1, P]
+        g3 = g_out[tl.out_row, 0:3]                          # [S, 3, P]
+        a_acc = chk[:, n_chunks] * (settings.bg * g3.sum(dim=1)
+                                    + g_out[tl.out_row, 3])
+        # p_hot: the last used position with a live pixel (-1: none)
+        pos = torch.arange(n_chunks, device=dev)
+        live_pos = (chk[:, :n_chunks].amax(dim=2) >= T_EPS) \
+            & (pos[None] < tl.n_used[:, None])
+        p_hot = torch.where(live_pos, pos[None], -1).amax(dim=1)
+        gsel = grads[b0:b0 + sel.numel()]                    # a view
+        for p in range(n_chunks - 1, -1, -1):
+            idx = (p <= p_hot).nonzero().squeeze(1)
+            if idx.numel() == 0:
+                continue
+            slot, alpha, act, d0, d1, r = tl.load(p, idx)
+            one_m = 1.0 - alpha
+            t_before = chk[idx, p, None, :] * _excl_cumprod(one_m)[0]
+            live = t_before >= T_EPS
+            w = torch.where(live, alpha * t_before, torch.zeros_like(alpha))
+            gc = torch.einsum("sck,skp->scp", r[..., 6:9], g3[idx])
+            wgc = w * gc
+            # suffix in composite order, exclusive of the copy itself
+            suffix = torch.flip(torch.cumsum(torch.flip(wgc, [1]), 1), [1])
+            a_i = a_acc[idx, None, :] + torch.cat(
+                [suffix[:, 1:], torch.zeros_like(suffix[:, :1])], dim=1)
+            d_alpha = torch.where(
+                live & act, gc * t_before - a_i / torch.clamp(one_m,
+                                                              min=1e-6),
+                torch.zeros_like(alpha))
+            dq = d_alpha * alpha * (-0.5)
+            s0 = dq.sum(dim=2)
+            s1 = (dq * d0).sum(dim=2)
+            s2 = (dq * d1).sum(dim=2)
+            s3 = (dq * d0 * d0).sum(dim=2)
+            s4 = (dq * d0 * d1).sum(dim=2)
+            s5 = (dq * d1 * d1).sum(dim=2)
+            dcol = torch.einsum("scp,skp->sck", w, g3[idx])
+            con_a, con_b, con_c, op = (r[..., 2], r[..., 3], r[..., 4],
+                                       r[..., 5])
+            vals = torch.stack([
+                -(2.0 * con_a * s1 + 2.0 * con_b * s2),
+                -(2.0 * con_c * s2 + 2.0 * con_b * s1),
+                s3, 2.0 * s4, s5,
+                -2.0 * s0 / torch.clamp(op, min=1e-12),
+                dcol[..., 0], dcol[..., 1], dcol[..., 2]], dim=1)  # [S,9,C]
+            gsel[idx[:, None, None], torch.arange(9, device=dev)[None, :,
+                                                                  None],
+                 slot[:, None, :]] = vals
+            a_acc[idx] = a_acc[idx] + wgc.sum(dim=1)
+            pairs += int(tl.real_copies(p, idx).sum())
+    return grads, pairs * settings.tile_h * settings.tile_w

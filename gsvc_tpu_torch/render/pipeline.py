@@ -1,10 +1,38 @@
-"""Raster settings for a model and frame size (port of
-``make_raster_settings``, gsvc_tpu/render/pipeline.py)."""
+"""Raster settings for a model and frame size, and the per-render record
+(port of ``make_raster_settings`` and ``RenderResults``,
+gsvc_tpu/render/pipeline.py)."""
 
 from __future__ import annotations
 
-from gsvc_tpu_torch.models.gaussians import GaussianConfig
+from typing import NamedTuple
+
+import torch
+
+from gsvc_tpu_torch.models.gaussians import (
+    GaussianConfig, GeneratedGaussians,
+)
 from gsvc_tpu_torch.render.splat import RasterSettings
+
+
+class RenderResults(NamedTuple):
+    """Per-render record (reference: common/base.py:9-27).  The JAX
+    record's ``rate`` is absent: the ported phases estimate no rate."""
+
+    image: torch.Tensor              # [3, H, W] channel-first
+    transmittance: torch.Tensor      # [H, W]
+    window_start: int                # anchor index of window row 0
+    in_window: torch.Tensor          # [V] anchor-level visibility
+    radii: torch.Tensor              # [V*K]
+    visibility_filter: torch.Tensor  # [V*K] radii > 0
+    selection_mask: torch.Tensor     # [V*K] neural_opacity > 0 & in window
+    neural_opacity: torch.Tensor     # [V*K, 1]
+    scaling: torch.Tensor            # [V*K, 3] generated gaussian scales
+    num_rendered: torch.Tensor
+    overflow: torch.Tensor
+    gaussians: GeneratedGaussians
+    # dropped copies at tiles whose final T >= 1/255 (visible loss); the
+    # capacity-growth policy reacts to this, raw overflow is telemetry
+    harmful_overflow: torch.Tensor
 
 
 def make_raster_settings(cfg: GaussianConfig, image_height: int,

@@ -10,8 +10,10 @@ tile <-> image layouts (port of gsvc_tpu/render/splat.py:44-126,
     The lists and counts equal the JAX package's whenever no two copies
     share a tile and a depth rank.
 
-Compositing lives in ``render/bidir.py`` (kernel B4 and its plain
-version).
+Compositing lives in ``render/bidir.py`` (decode, kernel B4) and
+``render/mirror.py`` (training, kernels B1 and B2), each beside its plain
+version.  Projection and the attribute rows carry gradients (every op is
+differentiable); binning is integer work with none.
 """
 
 from __future__ import annotations
@@ -265,6 +267,42 @@ def attr_rows_from_proj(proj: Projected, opacity, color) -> torch.Tensor:
         proj.conic[:, 0], proj.conic[:, 1], proj.conic[:, 2],
         opacity[:, 0], color[:, 0], color[:, 1], color[:, 2],
     ], dim=1)
+
+
+def gather_tile_planes_rows(attr_rows, tile_lists):
+    """[M, 9] attribute rows + [T, cap] id lists -> 9 x [T, cap] planes.
+
+    Padding ids (-1) read row 0 with opacity forced to 0: zero opacity
+    is zero alpha, so no contribution and no gradient."""
+    rows = attr_rows[tile_lists.clamp_min(0).long()]     # [T, cap, 9]
+    planes = rows.unbind(-1)
+    op = torch.where(tile_lists >= 0, planes[5], torch.zeros_like(planes[5]))
+    return planes[:5] + (op,) + planes[6:]
+
+
+# Post-composite transmittance above which a dropped (deepest) copy could
+# still have changed a pixel visibly (>= 1/255).
+HARMFUL_T_EPS = 1.0 / 255.0
+
+
+def tile_harmful_overflow(settings: RasterSettings, transmittance, dropped):
+    """Dropped copies at tiles whose compositing had NOT saturated: tiles
+    whose final T is >= 1/255 somewhere lost visible content.  Capacity
+    growth reacts to this count; raw overflow is telemetry.
+
+    transmittance [H, W] final per-pixel T; dropped [n_tiles].  Returns a
+    scalar count."""
+    th, tw = settings.tile_h, settings.tile_w
+    h_pad = settings.n_tiles_y * th - settings.image_height
+    w_pad = settings.n_tiles_x * tw - settings.image_width
+    t = transmittance
+    if h_pad or w_pad:
+        # padding pixels do not exist: T = 0 there (saturated = harmless)
+        t = torch.nn.functional.pad(t, (0, w_pad, 0, h_pad))
+    t_tile = t.reshape(settings.n_tiles_y, th, settings.n_tiles_x,
+                       tw).amax(dim=(1, 3))
+    unsat = t_tile.reshape(-1) >= HARMFUL_T_EPS
+    return torch.where(unsat, dropped, torch.zeros_like(dropped)).sum()
 
 
 def assemble_views(settings: RasterSettings, out4: torch.Tensor):

@@ -237,6 +237,10 @@ class Block(importlib.abc.MetaPathFinder):
 
 sys.meta_path.insert(0, Block())
 sys.path.insert(0, sys.argv[1])
+import importlib, pkgutil
+import gsvc_tpu_torch
+for mod in pkgutil.walk_packages(gsvc_tpu_torch.__path__, "gsvc_tpu_torch."):
+    importlib.import_module(mod.name)      # every module of the port
 from gsvc_tpu_torch.cli.decode import decode_bitstream
 from gsvc_tpu_torch.render.batched import frame_splats
 dec = decode_bitstream(sys.argv[2], device="cpu")
