@@ -21,26 +21,40 @@
    after; then holds each frame's kernel composite against the plain
    version and times both.
 5. Training phase: the 600 frames the port decodes from that bitstream
-   become the ground truth (uint8 on the card); ``GOPFitter.fit`` runs 24
+   become the ground truth (uint8 on the card); ``GOPFitter.fit`` runs 36
    steps of the fixture's model and pipeline
    (artifacts/rd_r5/realtex_0.004/cfg_args.yaml: 1920x1080, 100k initial
-   anchors, 50-dim features, 10 offsets, 8x128 tiles) with only the
-   schedule overlaid — 12 FULL_PRECISION and 12 QUANTIZED_NOISE steps,
-   statistics from step 3 on, no densify epoch; the fit's eval hook
-   scores all 600 frames after steps 12 and 24.  The launch counts are
+   anchors, 50-dim features, 10 offsets, 8x128 tiles, the 12 + 4 level
+   hash grid with 8 features) with only the schedule overlaid — 12
+   FULL_PRECISION, 8 QUANTIZED_NOISE, 8 ENTROPY and 8 STE_ENTROPY steps,
+   statistics from step 3 on, densify epochs (the index-plan path) at
+   steps 6 (FULL_PRECISION), 18, 24 and 30; the fit's eval hook scores
+   all 600 frames after steps 12, 24 and 36 (the last two with STE
+   rounding, through B3f), and the
+   whole-model rate estimate runs after step 36.  The launch counts are
    reset just before and read just after: B1 and B2 must launch once per
-   step.  Every loss must be finite; the mean PSNR of the 600 frames
-   (FULL_PRECISION renders) after the 12 FULL_PRECISION steps must be
-   above the PSNR before step 1; and the checkpoint written at step 24
-   must load into a fresh fitter.  (The training loss itself does not
-   fall in 12 steps: at step 1 the optical-flow term is ~0 — the
-   time-conditioned offsets barely differ between neighbouring frames at
-   the initial weights — and it grows as soon as the deform MLP takes its
-   first Adam steps, in the JAX package as in the port.)  Prints each
-   step's loss terms and time split (CUDA events) and times B1/B2 and
-   their plain versions on one training pair's inputs against their
-   bounds.
-6. Prints the kernel table as one JSON line, then the result line.
+   step, B3f/B3b once per entropy step (one union-window context query
+   per frame pair) and in no other step, and B3f once per frame of the
+   entropy-mode evaluations and once in the estimate.  Every loss must be
+   finite and the bits per parameter finite and positive in the entropy
+   phases; the mean PSNR of the 600 frames (FULL_PRECISION renders) after
+   the 12 FULL_PRECISION steps must be above the PSNR before step 1; and
+   the checkpoint written at step 36 must load into a fresh fitter.  (The
+   training loss itself does not fall in 12 steps: at step 1 the
+   optical-flow term is ~0 — the time-conditioned offsets barely differ
+   between neighbouring frames at the initial weights — and it grows as
+   soon as the deform MLP takes its first Adam steps, in the JAX package
+   as in the port.)  Prints each step's loss terms and time split (CUDA
+   events), each densify epoch's milliseconds with the anchor count and
+   capacity before and after, the per-phase median step, the estimated
+   bits, and times B1/B2 and their plain versions on one training pair's
+   inputs against their bounds.
+6. Hash-grid phase: kernels B3f/B3b (``hashgrid_forward`` /
+   ``hashgrid_backward``) against their plain versions on the fitted
+   state's STE-binarised table, at (a) the union window of the frame pair
+   299-300 (the inputs of a training step's context query) and (b) the
+   whole anchor capacity (the estimate's query), timed with their bounds.
+7. Prints the kernel table as one JSON line, then the result line.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 Frames are written nowhere; the checkpoint goes to a temporary directory.
@@ -64,12 +78,21 @@ FIXTURE_DIR = pathlib.Path(__file__).resolve().parent / "artifacts" \
 FIXTURE = str(FIXTURE_DIR / "bitstreams")
 N_FRAMES = 8
 # the training run: the fixture's config with only the schedule overlaid
-TRAIN_STEPS = 24
+# (12 + 8 + 8 + 8 steps; densify epochs at steps 6, 18, 24 and 30)
+PHASES = (("FULL_PRECISION", 12), ("QUANTIZED_NOISE", 8), ("ENTROPY", 8),
+          ("STE_ENTROPY", 8))
+TRAIN_STEPS = sum(n for _, n in PHASES)
+EVAL_EVERY = 12
 SCHEDULE = {"optimization.iterations": TRAIN_STEPS,
-            "optimization.full_precision_training_total": 12,
-            "optimization.quantized_training_total": 12,
+            "optimization.full_precision_training_total": PHASES[0][1],
+            "optimization.quantized_training_total": PHASES[1][1],
+            "optimization.entropy_constrained_train_total": PHASES[2][1],
+            "optimization.ste_entropy_constrained_train_total": PHASES[3][1],
             "optimization.start_stat": 2,
-            "optimization.pause_densification": 4}
+            "optimization.pause_densification": 4,
+            "optimization.update_from": 4,
+            "optimization.update_interval": 6,
+            "optimization.update_until": TRAIN_STEPS}
 # kernel B2 vs its plain version, per attribute: the largest difference at
 # most 2e-3 of the largest gradient magnitude.  Both run the same chunk
 # stops; the kernel forms each in-chunk suffix as the chunk's sum minus a
@@ -96,6 +119,13 @@ FLOPS_PER_PAIR = 25
 # moment sums (11) and the colour sums (6); the kernel's second alpha
 # evaluation is not counted.
 FLOPS_PER_BWD_PAIR = 49
+# kernel B3b vs its plain version: the largest difference at most 1e-4 of
+# the largest gradient magnitude (the table gradient is an atomic float32
+# sum of up to ~10^3 terms per row in an order that changes from run to
+# run; the position gradient is formed as sum_c r_c dw_c, autograd takes
+# the terms apart).  The forward is exact (MAX_HASH_FWD_ERR guards it).
+HASH_BWD_REL_ERR = 1e-4
+MAX_HASH_FWD_ERR = 1e-6
 
 
 def log(*args):
@@ -410,18 +440,33 @@ def decoded_ground_truth(dec):
 
 class StepTimer:
     """CUDA events at the train step's marks (gsvc_tpu_torch.train.
-    trainer.make_step_body): start, b1_start, b1_end, loss_end, b2_start,
-    b2_end, backward_end, adam_end."""
+    trainer.make_step_body): start, b3f_start, b3f_end (the context query
+    of the entropy phases), b1_start, b1_end, loss_end, b2_start, b2_end,
+    b3b_start, b3b_end, backward_end, adam_end; and the hash-grid kernels'
+    launch counts at start and adam_end."""
 
-    def __init__(self):
+    def __init__(self, hk):
+        self.hk = hk
         self.steps = []
+
+    def _counts(self):
+        return (self.hk.hashgrid_forward.launches,
+                self.hk.hashgrid_backward.launches)
 
     def mark(self, name):
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         if name == "start":
-            self.steps.append({})
+            self.steps.append({"b3_at_start": self._counts()})
         self.steps[-1][name] = ev
+        if name == "adam_end":
+            self.steps[-1]["b3_at_end"] = self._counts()
+
+    def launches(self):
+        """Per step: (B3f, B3b) launched inside it."""
+        return [tuple(b - a for a, b in zip(e["b3_at_start"],
+                                            e["b3_at_end"]))
+                for e in self.steps]
 
     def split(self):
         """Per step: {phase: ms}."""
@@ -429,18 +474,34 @@ class StepTimer:
         rows = []
         for e in self.steps:
             def ms(a, b, e=e):
-                return e[a].elapsed_time(e[b])
+                return e[a].elapsed_time(e[b]) if a in e else 0.0
             b2 = ms("b2_start", "b2_end")
+            b3f = ms("b3f_start", "b3f_end")
+            b3b = ms("b3b_start", "b3b_end")
             rows.append({
                 "step": ms("start", "adam_end"),
-                "generation+projection+binning": ms("start", "b1_start"),
+                "B3f": b3f,
+                "generation+projection+binning": ms("start", "b1_start")
+                - b3f,
                 "B1": ms("b1_start", "b1_end"),
                 "loss": ms("b1_end", "loss_end"),
                 "B2+scatter": b2,
-                "rest of backward": ms("loss_end", "backward_end") - b2,
+                "B3b": b3b,
+                "rest of backward": ms("loss_end", "backward_end") - b2
+                - b3b,
                 "Adam+stats": ms("backward_end", "adam_end"),
             })
         return rows
+
+
+def phase_of(it: int) -> str:
+    """The schedule phase of iteration ``it`` (1-based)."""
+    end = 0
+    for name, n in PHASES:
+        end += n
+        if it <= end:
+            return name
+    return "STE_ENTROPY"
 
 
 def training_pair_inputs(fitter, i1: int):
@@ -476,8 +537,33 @@ def training_pair_inputs(fitter, i1: int):
             torch.stack(counts))
 
 
-def training_phase(dec, bidir, mirror):
-    """24 steps of GOPFitter.fit at the fixture's full width."""
+def timed_densify(fitter, epochs: list):
+    """Wrap the fitter's densify epoch: record each epoch's iteration,
+    milliseconds (host clock around a synchronised epoch) and the anchor
+    count, capacity and window before and after."""
+    run = fitter._densify
+
+    def epoch():
+        torch.cuda.synchronize()
+        before = (fitter.state.n_active, fitter.capacity, fitter.window_cap)
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        epochs.append(dict(
+            it=fitter.controller.current_iteration,
+            ms=1e3 * (time.perf_counter() - t0), before=before,
+            after=(fitter.state.n_active, fitter.capacity,
+                   fitter.window_cap),
+            grown=res.n_grown, pruned=res.n_pruned))
+        return res
+
+    fitter._densify = epoch
+
+
+def training_phase(dec, bidir, mirror, hk):
+    """GOPFitter.fit through the four phases at the fixture's full width.
+    Returns (B1's numbers, B2's numbers, B3f/B3b launches, the fitter)."""
+    from gsvc_tpu_torch.codec.estimate import estimate_final_bits
     from gsvc_tpu_torch.config import load_config
     from gsvc_tpu_torch.framecube.frame import FrameCubeDataset
     from gsvc_tpu_torch.train.fit import GOPFitter
@@ -492,71 +578,133 @@ def training_phase(dec, bidir, mirror):
     cfg.pipeline.model_path = ""
     dataset = FrameCubeDataset(images=frames)
     t0 = time.perf_counter()
-    fitter = GOPFitter(cfg, dataset, seed=0, device="cuda")
+    fitter = GOPFitter(cfg, dataset, seed=0, device="cuda",
+                       log_fn=lambda m: log(f"  fit: {m}"))
     torch.cuda.synchronize()
     log(f"training phase: fitter set up in {time.perf_counter() - t0:.2f} s"
         f": {fitter.state.n_active} anchors (capacity {fitter.capacity}), "
         f"window_cap {fitter.window_cap}, tiles "
         f"{fitter.settings.tile_h}x{fitter.settings.tile_w} "
         f"(T={fitter.settings.n_tiles}), cap {fitter.settings.gaussian_cap}"
-        f", chunk {fitter.settings.chunk}")
+        f", chunk {fitter.settings.chunk}; schedule "
+        + ", ".join(f"{n} {name}" for name, n in PHASES))
     t0 = time.perf_counter()
     psnr0 = fitter.evaluate()["psnr"]
     log(f"training phase: before step 1, mean PSNR of the {len(frames)} "
         f"frames {psnr0:.4f} dB ({time.perf_counter() - t0:.2f} s)")
-    fitter.timer = StepTimer()
+    fitter.timer = StepTimer(hk)
+    epochs = []
+    timed_densify(fitter, epochs)
     ckpt_dir = tempfile.mkdtemp(prefix="gsvc_smoke_")
 
     bidir.bidir_composite_attrs.launches = 0
     mirror.mirror_forward.launches = 0
     mirror.mirror_backward.launches = 0
+    hk.hashgrid_forward.launches = 0
+    hk.hashgrid_backward.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     report = fitter.fit(iterations=TRAIN_STEPS, log_every=1,
-                        eval_every=TRAIN_STEPS // 2,
+                        eval_every=EVAL_EVERY, rate_log_every=TRAIN_STEPS,
                         checkpoint_iterations=(TRAIN_STEPS,),
                         checkpoint_dir=ckpt_dir)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = (mirror.mirror_forward.launches,
-                mirror.mirror_backward.launches)
+                mirror.mirror_backward.launches,
+                hk.hashgrid_forward.launches, hk.hashgrid_backward.launches)
     log(f"training phase: {TRAIN_STEPS} steps in {wall:.3f} s wall "
-        f"(two 600-frame evals and the checkpoint included); launches "
-        f"B1 {launches[0]}, B2 {launches[1]}")
-    if launches != (TRAIN_STEPS, TRAIN_STEPS):
-        raise AssertionError(f"B1/B2 launched {launches} times in "
+        f"({len(report.evals)} 600-frame evals, {len(epochs)} densify "
+        f"epochs, the rate estimate and the checkpoint included); launches "
+        f"B1 {launches[0]}, B2 {launches[1]}, B3f {launches[2]}, B3b "
+        f"{launches[3]}")
+    if launches[:2] != (TRAIN_STEPS, TRAIN_STEPS):
+        raise AssertionError(f"B1/B2 launched {launches[:2]} times in "
                              f"{TRAIN_STEPS} steps")
+    entropic = ("ENTROPY", "STE_ENTROPY")
+    per_step = fitter.timer.launches()
+    for it, counts in enumerate(per_step, start=1):
+        want = (1, 1) if phase_of(it) in entropic else (0, 0)
+        if counts != want:
+            raise AssertionError(f"step {it} ({phase_of(it)}): B3f/B3b "
+                                 f"launched {counts} times, expected {want}")
+    n_entropy = sum(phase_of(it) in entropic
+                    for it in range(1, TRAIN_STEPS + 1))
+    eval_b3 = len(frames) * sum(phase_of(e["iter"]) in entropic
+                                for e in report.evals)
+    want = (n_entropy + eval_b3 + 1, n_entropy)
+    if launches[2:] != want:
+        raise AssertionError(f"B3f/B3b launched {launches[2:]} times, "
+                             f"expected {want} ({n_entropy} entropy steps, "
+                             f"{eval_b3} evaluated frames, one estimate)")
 
-    losses = [h["loss"] for h in report.history]
+    for e in epochs:
+        log(f"training phase: densify epoch at step {e['it']} "
+            f"({phase_of(e['it'])}): {e['ms']:.1f} ms, +{e['grown']} "
+            f"-{e['pruned']} anchors; anchors / capacity / window_cap "
+            f"{e['before']} -> {e['after']}")
+    if not any(phase_of(e["it"]) == "FULL_PRECISION" for e in epochs):
+        raise AssertionError(f"no densify epoch in FULL_PRECISION: "
+                             f"{[e['it'] for e in epochs]}")
+
+    hist = report.history
+    losses = [h["loss"] for h in hist]
     if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
         raise AssertionError(f"losses: {losses}")
-    for key in ("loss", "l1", "optical", "psnr"):
+    for h in hist:
+        rated = phase_of(h["iter"]) in entropic
+        if rated != (np.isfinite(h["bpp"]) and h["bpp"] > 0):
+            raise AssertionError(f"step {h['iter']} ({phase_of(h['iter'])})"
+                                 f": bits per parameter {h['bpp']}")
+    for key in ("loss", "l1", "optical", "psnr", "bpp", "n_active"):
         log(f"training phase: {key} per step " + ", ".join(
-            f"{h[key]:.5f}" for h in report.history))
+            f"{h[key]:.5f}" if key != "n_active" else str(h[key])
+            for h in hist))
     evals = {e["iter"]: e["psnr"] for e in report.evals}
     log(f"training phase: mean PSNR of the {len(frames)} frames: before "
-        f"step 1 {psnr0:.4f} dB, after step 12 {evals[12]:.4f} dB, after "
-        f"step 24 {evals[24]:.4f} dB")
+        f"step 1 {psnr0:.4f} dB, then " + ", ".join(
+            f"after step {it} ({phase_of(it)}) {v:.4f} dB"
+            for it, v in evals.items()))
     if not evals[12] > psnr0:
         raise AssertionError(f"the FULL_PRECISION steps did not improve the "
                              f"fit: PSNR {psnr0} before, {evals[12]} after")
 
     split = fitter.timer.split()
-    later = split[1:]
-    med = {k: float(np.median([r[k] for r in later])) for k in later[0]}
     log("training phase: step ms (CUDA events) " + ", ".join(
         f"{r['step']:.2f}" for r in split))
-    log("training phase: median over steps 2-24: " + ", ".join(
-        f"{k} {v:.3f} ms" for k, v in med.items()))
-    log(f"training phase: {1e3 / med['step']:.3f} it/s at 1920x1080 from "
-        f"the median step")
+    meds = {}
+    for name, _ in PHASES:
+        rows = [r for it, r in enumerate(split, start=1)
+                if phase_of(it) == name and it > 1]
+        meds[name] = {k: float(np.median([r[k] for r in rows]))
+                      for k in rows[0]}
+        log(f"training phase: {name} median step over {len(rows)} steps: "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in meds[name].items())
+            + f" ({1e3 / meds[name]['step']:.3f} it/s at 1920x1080)")
+
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    est = estimate_final_bits(fitter.state, fitter.gcfg)
+    stop.record()
+    torch.cuda.synchronize()
+    mb = 8 * 2 ** 20
+    log(f"training phase: estimate_final_bits in {start.elapsed_time(stop):.3f}"
+        f" ms over capacity {fitter.capacity}: MB anchor "
+        f"{est.bit_anchor / mb:.4f}, feat {est.bit_feat / mb:.4f}, scaling "
+        f"{est.bit_scaling / mb:.4f}, offsets {est.bit_offsets / mb:.4f}, "
+        f"hash {est.bit_hash / mb:.4f}, masks {est.bit_masks / mb:.4f}, mlp "
+        f"{est.bit_mlp / mb:.4f}, total {est.total / mb:.4f}")
+    if not (np.isfinite(est.total) and est.total > 0):
+        raise AssertionError(f"estimated bits {est}")
 
     fresh = GOPFitter(cfg, dataset, seed=1, device="cuda")
     it = load_checkpoint(f"{ckpt_dir}/chkpnt{TRAIN_STEPS}.pkl", fresh)
     same = all(torch.equal(a, b) for a, b in zip(fresh.state.anchors,
                                                  fitter.state.anchors))
     if it != TRAIN_STEPS or not same or fresh.adam.step != TRAIN_STEPS:
-        raise AssertionError("the step-24 checkpoint did not load back")
+        raise AssertionError(f"the step-{TRAIN_STEPS} checkpoint did not "
+                             f"load back")
     log(f"training phase: checkpoint {ckpt_dir}/chkpnt{TRAIN_STEPS}.pkl "
         f"loaded into a fresh fitter (iteration {it})")
     del fresh
@@ -568,11 +716,106 @@ def training_phase(dec, bidir, mirror):
         "training phase (frames 299-300)")
     b1, b2 = mirror_times(mirror, fitter.settings, attrs, lists, counts, aux,
                           pf, pb, "training phase (frames 299-300)")
-    b1.update(launches=launches[0], max_abs_err=f_err,
-              step_ms=med["B1"])
+    fp = meds["FULL_PRECISION"]
+    b1.update(launches=launches[0], max_abs_err=f_err, step_ms=fp["B1"])
     b2.update(launches=launches[1], max_abs_err=b_err,
-              step_ms=med["B2+scatter"])
-    return b1, b2
+              step_ms=fp["B2+scatter"])
+    return b1, b2, launches[2:], fitter
+
+
+def hash_flops(spec, n: int, backward: bool) -> int:
+    """Least FP32 work of the encode (or its gradient) of n queries: per
+    (query, instance) the cell (3 per dimension) and per corner its
+    weight (2 per dimension), F multiply-adds and the weight sum, then F
+    divisions; the gradient adds per corner the table row's F products,
+    the residual's F subtract-multiply-adds and the position terms (4
+    per dimension).  FMA counts 2."""
+    f = spec.n_features
+    total = 0
+    for d, levels in ((3, spec.grid_3d.n_levels),
+                      (2, 3 * spec.grid_2d.n_levels)):
+        c = 1 << d
+        per = 3 * d + c * (2 * d + 2 * f + 1) + f
+        if backward:
+            per += c * (3 * f + 4 * d)
+        total += levels * per
+    return n * total
+
+
+def hashgrid_check(hk, spec, table, x, label):
+    """B3f/B3b against their plain versions on one input, timed."""
+    out_k = hk.hashgrid_fwd_cuda(table, x, spec)
+    out_p = hk.hashgrid_fwd_plain(table, x, spec)
+    torch.cuda.synchronize()
+    f_err = float((out_k - out_p).abs().max())
+    if not np.isfinite(f_err) or f_err > MAX_HASH_FWD_ERR:
+        raise AssertionError(f"{label}: B3f disagrees with its plain "
+                             f"version: {f_err} > {MAX_HASH_FWD_ERR}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    g = torch.randn(out_p.shape, generator=gen, device="cuda")
+    gt_k, gx_k = hk.hashgrid_bwd_cuda(table, x, g, spec)
+    gt_p, gx_p = hk.hashgrid_bwd_plain(table, x, g, spec)
+    torch.cuda.synchronize()
+    b_abs, b_rel = 0.0, 0.0
+    for got, want in ((gt_k, gt_p), (gx_k, gx_p)):
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{label}: B3b gave non-finite gradients")
+        err = float((got - want).abs().max())
+        b_abs = max(b_abs, err)
+        b_rel = max(b_rel, err / max(float(want.abs().max()), 1e-30))
+    if b_rel > HASH_BWD_REL_ERR:
+        raise AssertionError(f"{label}: B3b disagrees with its plain "
+                             f"version: {b_rel} > {HASH_BWD_REL_ERR} of the "
+                             f"largest gradient")
+    f_ms = cuda_ms(lambda: hk.hashgrid_fwd_cuda(table, x, spec), 20)
+    b_ms = cuda_ms(lambda: hk.hashgrid_bwd_cuda(table, x, g, spec), 20)
+    f_plain = cuda_ms(lambda: hk.hashgrid_fwd_plain(table, x, spec), 3)
+    b_plain = cuda_ms(lambda: hk.hashgrid_bwd_plain(table, x, g, spec), 3)
+    n = x.shape[0]
+    fb = bound_ms(nbytes(table, x, out_k), hash_flops(spec, n, False))
+    bb = bound_ms(nbytes(table, x, g, gt_k, gx_k), hash_flops(spec, n, True))
+    log(f"{label}: N={n} queries x {hk.instance_table(spec).shape[0]} "
+        f"instances; B3f max |kernel - plain| {f_err:.3e} (limit "
+        f"{MAX_HASH_FWD_ERR:.0e}), kernel {f_ms:.4f} ms, plain "
+        f"{f_plain:.3f} ms, bound {fb[0]:.4f} ms ({fb[1]}); B3b max |kernel "
+        f"- plain| {b_abs:.3e} = {b_rel:.3e} of the largest gradient (limit "
+        f"{HASH_BWD_REL_ERR:.0e}), kernel {b_ms:.4f} ms, plain "
+        f"{b_plain:.3f} ms, bound {bb[0]:.4f} ms ({bb[1]})")
+    return (dict(ms=f_ms, plain_ms=f_plain, bound_ms=fb[0], bound_by=fb[1],
+                 max_abs_err=f_err),
+            dict(ms=b_ms, plain_ms=b_plain, bound_ms=bb[0], bound_by=bb[1],
+                 max_abs_err=b_abs))
+
+
+def hashgrid_phase(hk, fitter):
+    """B3f/B3b on the fitted state's STE-binarised table, at (a) the union
+    window of the frame pair 299-300 and (b) the whole capacity."""
+    from gsvc_tpu_torch.models.gaussians import get_anchor, window_for_frame
+    from gsvc_tpu_torch.ops.quant import ste_binary
+
+    st, spec = fitter.state, fitter.gcfg.grid
+    cap = fitter.window_cap
+    with torch.no_grad():
+        table = ste_binary(st.nets.hash_table).contiguous()
+        anchor_q = get_anchor(st)
+        x_all = ((anchor_q - st.x_bound_min)
+                 / (st.x_bound_max - st.x_bound_min)).contiguous()
+    capacity = x_all.shape[0]
+    s1, s2 = (window_for_frame(st, fitter.gcfg, float(fitter.frame_zs[i]),
+                               cap)[0] for i in (299, 300))
+    # the union window of render/batched.py:_pair_entropy_contexts
+    slack = min(max(cap // 8, 64), capacity - cap)
+    s_min = min(max(min(s1, s2), 0), capacity - cap - slack)
+    x_win = x_all[s_min:s_min + cap + slack].contiguous()
+    log(f"hash-grid phase: table {tuple(table.shape)} "
+        f"({nbytes(table) / 1e6:.1f} MB), window_cap {cap} + slack {slack}, "
+        f"capacity {capacity}")
+    win = hashgrid_check(hk, spec, table, x_win,
+                         "hash-grid phase (union window, frames 299-300)")
+    full = hashgrid_check(hk, spec, table, x_all,
+                          "hash-grid phase (whole capacity)")
+    return win, full
 
 
 def main() -> int:
@@ -581,6 +824,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     from gsvc_tpu_torch import build
+    from gsvc_tpu_torch.ops import hashgrid_kernels as hk
     from gsvc_tpu_torch.render import bidir, mirror
     from gsvc_tpu_torch.render.splat import RasterSettings
 
@@ -613,7 +857,8 @@ def main() -> int:
                                     tiles_per_gaussian=32)
     mk_fwd, mk_bwd = mirror_kernel_phase(mirror, train_settings)
     res, dec = slice_phase(bidir)
-    b1, b2 = training_phase(dec, bidir, mirror)
+    b1, b2, b3_launches, fitter = training_phase(dec, bidir, mirror, hk)
+    (h3f, h3b), (c3f, c3b) = hashgrid_phase(hk, fitter)
 
     table = {"kernels": [{
         "name": "bidir_composite_attrs",
@@ -651,6 +896,30 @@ def main() -> int:
         "bound_ms": b2["bound_ms"],
         "bound_by": b2["bound_by"],
         "library_ms": None,   # no PyTorch call computes this function
+    }, {
+        "name": "hashgrid_forward",
+        "route": "cuda",
+        "source": "gsvc_tpu_torch/csrc/hashgrid_fwd.cu",
+        "replaces": "gsvc_tpu/ops/pallas_hashgrid.py:270",
+        "launches": b3_launches[0],
+        "max_abs_err": max(h3f["max_abs_err"], c3f["max_abs_err"]),
+        "ms": h3f["ms"],
+        "plain_ms": h3f["plain_ms"],
+        "bound_ms": h3f["bound_ms"],
+        "bound_by": h3f["bound_by"],
+        "library_ms": None,   # no PyTorch call computes a hash-grid encode
+    }, {
+        "name": "hashgrid_backward",
+        "route": "cuda",
+        "source": "gsvc_tpu_torch/csrc/hashgrid_bwd.cu",
+        "replaces": "gsvc_tpu/ops/pallas_hashgrid.py:295",
+        "launches": b3_launches[1],
+        "max_abs_err": max(h3b["max_abs_err"], c3b["max_abs_err"]),
+        "ms": h3b["ms"],
+        "plain_ms": h3b["plain_ms"],
+        "bound_ms": h3b["bound_ms"],
+        "bound_by": h3b["bound_by"],
+        "library_ms": None,   # no PyTorch call computes a hash-grid encode
     }]}
     log(json.dumps(table))
     log(f"wall: {time.perf_counter() - t_start:.1f} s")

@@ -10,7 +10,8 @@ version (the tests), on a CUDA tensor it launches the hand-written kernel.
 Ported so far: the standalone decoder (``python -m gsvc_tpu_torch.cli.decode``)
 — bitstream in, host entropy decode, then gaussian generation,
 projection, binning and the bidirectional composite kernel (B4) on the
-card; and fitting a GOP in the FULL_PRECISION and QUANTIZED_NOISE phases
-(``python -m gsvc_tpu_torch.cli.train --skip_codec``) through the mirror
-compositing kernels B1 (forward) and B2 (backward).
+card; and fitting a GOP through the four phases of the schedule with
+densify epochs (``python -m gsvc_tpu_torch.cli.train --skip_codec``)
+through the mirror compositing kernels B1 (forward) and B2 (backward)
+and, in the entropy phases, the hash-grid kernels B3f and B3b.
 """

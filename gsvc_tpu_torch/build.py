@@ -4,9 +4,9 @@ Two shared libraries with plain C interfaces, loaded with ``ctypes``:
 
   * ``csrc/gsvc_codec.cpp`` (the repo's host entropy codec) compiled by the
     host C++ compiler — the one ``nvcc`` drives (``g++`` on the PATH);
-  * each ``gsvc_tpu_torch/csrc/*.cu`` kernel (with the shared
-    ``composite.cuh``) compiled by ``nvcc`` for ``sm_90a`` (Hopper) with
-    ``-O3 -shared -Xcompiler -fPIC``.
+  * each ``gsvc_tpu_torch/csrc/*.cu`` kernel (with the shared headers
+    ``composite.cuh`` and ``hashgrid.cuh``) compiled by ``nvcc`` for
+    ``sm_90a`` (Hopper) with ``-O3 -shared -Xcompiler -fPIC``.
 
 Nothing includes PyTorch's headers, so a build takes seconds.  Outputs
 go to ``build/gsvc_tpu_torch/`` under the repo root (never next to the
@@ -31,7 +31,8 @@ REPO_ROOT = pathlib.Path(__file__).resolve().parents[1]
 BUILD_DIR = REPO_ROOT / "build" / "gsvc_tpu_torch"
 CODEC_SRC = REPO_ROOT / "csrc" / "gsvc_codec.cpp"
 KERNEL_DIR = pathlib.Path(__file__).resolve().parent / "csrc"
-KERNELS = ("bidir", "mirror_fwd", "mirror_bwd")
+KERNELS = ("bidir", "mirror_fwd", "mirror_bwd", "hashgrid_fwd",
+           "hashgrid_bwd")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -3,10 +3,13 @@
     python -m gsvc_tpu_torch.cli.train --source_path frames/ \
         --model_path out/ --config_path cfgs/uvg.yaml --skip_codec
 
-Fits, writes ``chkpnt_final.pkl`` (the JAX package's checkpoint format)
-and ``results.json``.  The encode/decode round trip after the fit is the
-next slice of the port, so ``--skip_codec`` is required for now; so are
-a single GOP and a single device (``--gop_size`` and ``--mesh`` raise).
+Fits through every phase of the config's schedule (densify epochs
+included), logging the estimated rate every 500 iterations of the entropy
+phases, and writes ``chkpnt_final.pkl`` (the JAX package's checkpoint
+format) and ``results.json``.  The encode/decode round trip after the fit
+is the next slice of the port, so ``--skip_codec`` is required for now;
+so are a single GOP and a single device (``--gop_size`` and ``--mesh``
+raise).
 ``--device cpu`` runs the plain PyTorch path (tests); the default is
 ``cuda`` and fails without a card.
 """
@@ -128,7 +131,7 @@ def main(argv=None):
             start = load_checkpoint(args.checkpoint, fitter)
             log.info("resumed from %s at iteration %d", args.checkpoint,
                      start)
-        report = fitter.fit(eval_every=args.eval_every,
+        report = fitter.fit(eval_every=args.eval_every, rate_log_every=500,
                             checkpoint_iterations=tuple(
                                 args.checkpoint_iterations),
                             checkpoint_dir=str(out))

@@ -6,14 +6,18 @@ capacity with the anchors z-sorted over the live prefix (padding rows
 carry the z = 1e9 sentinel), exactly as in the JAX package, so a frame's
 Toast-like Sliding Window is one contiguous slice.
 
-Ported modes of ``generate_neural_gaussians``: FULL_PRECISION (with
-gradients, through the straight-through anchor quantization and mask),
-QUANTIZED_NOISE and DECODED.  The entropy modes (ENTROPY, STE_ENTROPY)
-need the hash-grid context and belong to the next slice.
+Every mode of ``generate_neural_gaussians`` is ported: FULL_PRECISION
+(with gradients, through the straight-through anchor quantization and
+mask), QUANTIZED_NOISE, the entropy modes ENTROPY and STE_ENTROPY (the
+hash-grid context through kernels B3f/B3b, and the window's rate
+estimate) and DECODED.
 
 Reference symbol map:
   activations                scene/gaussian_model.py:641-704
+  calc_interp_feat           scene/gaussian_model.py:726-732
+  calc_entropy_context       scene/gaussian_model.py:1569-1597
   generate_neural_gaussians  ortho_gaussian_renderer/guassian.py:134-310
+  calc_sampled_rate          ortho_gaussian_renderer/guassian.py:73-132
 """
 
 from __future__ import annotations
@@ -27,24 +31,24 @@ import torch
 
 from gsvc_tpu_torch.config import ModelConfig
 from gsvc_tpu_torch.models.mlps import (
-    deform_mlp, deform_mlp_init, deform_mlp_shapes, entropy_params_net_init,
-    entropy_params_net_shapes, generator_net, generator_net_init,
-    generator_net_shapes,
+    deform_mlp, deform_mlp_init, deform_mlp_shapes, entropy_params_net,
+    entropy_params_net_init, entropy_params_net_shapes, generator_net,
+    generator_net_init, generator_net_shapes,
 )
 from gsvc_tpu_torch.ops.embed import positional_embedder
-from gsvc_tpu_torch.ops.hashgrid import MixGridSpec, make_mix_grid_spec
+from gsvc_tpu_torch.ops.entropy import gaussian_bits
+from gsvc_tpu_torch.ops.hashgrid import (
+    MixGridSpec, init_mix_grid_params, make_mix_grid_spec, mix_grid_encode,
+)
+from gsvc_tpu_torch.ops.hashgrid_kernels import mix_grid_encode_kernel
 from gsvc_tpu_torch.ops.quant import (
-    _ste, quantize_anchor, uniform_noise_quantize,
+    _ste, quantize_anchor, ste_binary, ste_round, uniform_noise_quantize,
 )
 
 # base quantization steps (reference: guassian.py:165-167)
 Q_FEAT = 1.0
 Q_SCALING = 0.001
 Q_OFFSETS = 0.2
-
-NEXT_SLICE = ("the entropy phases (ENTROPY, STE_ENTROPY: hash-grid kernels "
-              "B3f/B3b and ops/entropy.py), the densify epoch and the "
-              "encode half of the codec are the next slice of the port")
 
 
 class GenerateMode(enum.IntEnum):
@@ -148,6 +152,23 @@ class EntropyContext(NamedTuple):
     q_offsets_adj: object
 
 
+class RatePack(NamedTuple):
+    """The window's rate estimate: bits per parameter overall and per
+    attribute, and the raw bit and parameter sums (zeros outside the
+    entropy modes)."""
+
+    bit_per_param: torch.Tensor
+    bit_per_feat_param: torch.Tensor
+    bit_per_scaling_param: torch.Tensor
+    bit_per_offsets_param: torch.Tensor
+    bits_total: torch.Tensor
+    params_total: torch.Tensor
+
+
+def zero_rate(device) -> RatePack:
+    return RatePack(*(torch.zeros((), device=device) for _ in range(6)))
+
+
 class GeneratedGaussians(NamedTuple):
     """Flattened per-gaussian tensors of one window, [V*K, ...]."""
 
@@ -160,6 +181,7 @@ class GeneratedGaussians(NamedTuple):
     neural_opacity: torch.Tensor  # [V*K, 1] pre-cull
     anchor_xyz: torch.Tensor      # [V*K, 3] parent anchor position
     offsets_world: torch.Tensor   # [V*K, 3]
+    rate: RatePack
 
 
 def net_param_shapes(cfg: GaussianConfig) -> dict:
@@ -271,15 +293,16 @@ def init_model(gen: torch.Generator, cfg: GaussianConfig,
     """A ModelState from an initial point cloud (port of ``init_model``).
 
     The anchor arrays equal the JAX package's exactly; the network
-    weights are drawn from ``gen`` with the JAX distributions (hash table
-    U(-1e-4, 1e-4), linears U(+-1/sqrt(fan_in))) in the JAX order."""
+    weights are drawn from ``gen``, on the generator's own device, with
+    the JAX distributions (hash table U(-1e-4, 1e-4), linears
+    U(+-1/sqrt(fan_in))) in the JAX order, and moved to ``device``: a CPU
+    generator gives the same initial networks on every device."""
     fields, n = init_anchor_arrays(cfg, points, capacity, voxel_size)
     anchors = AnchorState(**{k: torch.from_numpy(v).to(device)
                              for k, v in fields.items()})
     fd, k = cfg.feat_dim, cfg.n_offsets
     inner, cond, grid_out = fd * 2, cfg.pe_dim, cfg.grid.output_dim
-    hash_table = (torch.rand((cfg.grid.total_rows, cfg.grid.n_features),
-                             generator=gen, device=device) * 2.0 - 1.0) * 1e-4
+    hash_table = init_mix_grid_params(gen, cfg.grid, device=device)
     nets = NetParams(
         hash_table=hash_table,
         mlp_opacity=generator_net_init(gen, fd, k, inner, cond, device),
@@ -361,6 +384,50 @@ def get_anchor(state: ModelState, decoded: bool = False):
 
 
 # ---------------------------------------------------------------------------
+# Hash features + entropy context
+# ---------------------------------------------------------------------------
+
+def calc_interp_feat(state: ModelState, cfg: GaussianConfig, x,
+                     decoded: bool = False, timer=None):
+    """Normalise ``x`` by the learned bounds and encode it through the mix
+    grid (the table STE-binarised in training).  ``hash_backend`` "auto"
+    and "lanegather" take kernels B3f/B3b on CUDA tensors and their plain
+    version on CPU tensors; "xla" asks for the plain version."""
+    xn = (x - state.x_bound_min) / (state.x_bound_max - state.x_bound_min)
+    binarize = ste_binary if cfg.ste_binary and not decoded else None
+    if cfg.hash_backend in ("auto", "lanegather"):
+        return mix_grid_encode_kernel(state.nets.hash_table, xn, cfg.grid,
+                                      binarize=binarize, timer=timer)
+    if cfg.hash_backend == "xla":
+        return mix_grid_encode(state.nets.hash_table, xn, cfg.grid,
+                               binarize=binarize)
+    raise ValueError(f"unknown hash_backend {cfg.hash_backend!r}")
+
+
+def calc_entropy_context(state: ModelState, cfg: GaussianConfig, anchor,
+                         decoded: bool = False, timer=None) -> EntropyContext:
+    """The three entropy-parameter nets on the anchors' hash features."""
+    feat_ctx = calc_interp_feat(state, cfg, anchor, decoded, timer=timer)
+    nets = state.nets
+    m_f, s_f, qf = entropy_params_net(nets.mlp_feature_enet, feat_ctx)
+    m_s, s_s, qs = entropy_params_net(nets.mlp_scaling_enet, feat_ctx)
+    m_o, s_o, qo = entropy_params_net(nets.mlp_offset_enet, feat_ctx)
+
+    def clip_exp(v):
+        return torch.exp(torch.clamp(v, -10.0, 10.0))
+
+    def floor(v):
+        return torch.clamp(v, min=1e-9)
+
+    return EntropyContext(
+        mean_feat=m_f, scale_feat=floor(s_f),
+        mean_scaling=m_s, scale_scaling=floor(s_s),
+        mean_offsets=m_o, scale_offsets=floor(s_o),
+        q_feat_adj=clip_exp(qf), q_scaling_adj=clip_exp(qs),
+        q_offsets_adj=clip_exp(qo))
+
+
+# ---------------------------------------------------------------------------
 # TSW visibility window
 # ---------------------------------------------------------------------------
 
@@ -384,22 +451,61 @@ def window_for_frame(state: ModelState, cfg: GaussianConfig, frame_z: float,
 # Neural gaussian generation
 # ---------------------------------------------------------------------------
 
+def _rate_from_context(cfg: GaussianConfig, feat, scaling, offsets, masks,
+                       ec: EntropyContext, q_feat, q_scaling, q_offsets,
+                       in_window, mask_anchor, feat_mean, scaling_mean,
+                       offset_mean) -> RatePack:
+    """Window-wide rate estimate (the reference samples 5% of the
+    visible anchors, calc_sampled_rate; the window-wide sum has the same
+    expectation): bits over mask-surviving anchors, divided by the count
+    of visible anchors."""
+    k = cfg.n_offsets
+    w = (in_window & mask_anchor).to(torch.float32)[:, None]    # [V, 1]
+    n_vis = torch.clamp(torch.sum(in_window.to(torch.float32)), min=1.0)
+    bits_feat = gaussian_bits(feat, ec.mean_feat, ec.scale_feat, q_feat,
+                              x_mean=feat_mean) * w
+    bits_scaling = gaussian_bits(scaling, ec.mean_scaling, ec.scale_scaling,
+                                 q_scaling, x_mean=scaling_mean) * w
+    offsets_flat = offsets.reshape(-1, 3 * k)
+    mask3 = torch.repeat_interleave(masks, 3, dim=-1).reshape(-1, 3 * k)
+    bits_offsets = gaussian_bits(offsets_flat, ec.mean_offsets,
+                                 ec.scale_offsets, q_offsets,
+                                 x_mean=offset_mean) * mask3 * w
+    n_feat = n_vis * cfg.feat_dim
+    n_scaling = n_vis * 6
+    n_offsets = n_vis * 3 * k
+    sum_feat = torch.sum(bits_feat)
+    sum_scaling = torch.sum(bits_scaling)
+    sum_offsets = torch.sum(bits_offsets)
+    bits_total = sum_feat + sum_scaling + sum_offsets
+    params_total = n_feat + n_scaling + n_offsets
+    return RatePack(bit_per_param=bits_total / params_total,
+                    bit_per_feat_param=sum_feat / n_feat,
+                    bit_per_scaling_param=sum_scaling / n_scaling,
+                    bit_per_offsets_param=sum_offsets / n_offsets,
+                    bits_total=bits_total, params_total=params_total)
+
+
 def generate_neural_gaussians(
     state: ModelState, cfg: GaussianConfig, frame_z: float, cam_z: float,
     window_start: int, in_window: torch.Tensor, cap: int,
     mode: GenerateMode = GenerateMode.DECODED, decoded: bool = True,
     generator: Optional[torch.Generator] = None, noise=None,
+    entropy_ctx: Optional[EntropyContext] = None,
 ) -> GeneratedGaussians:
     """Per-gaussian splat inputs for one frame window (guassian.py:134-310),
     static-shape form: culled gaussians keep their rows with opacity 0 and
     valid=False.
 
-    QUANTIZED_NOISE adds uniform quantization noise to the window's
-    features, scales and offsets, drawn from ``generator`` — or taken
-    from ``noise``, a (feat [V, F], scaling [V, 6], offsets [V, K, 3])
-    tuple of U[-0.5, 0.5) draws (tests inject the JAX key's)."""
-    if mode in (GenerateMode.ENTROPY, GenerateMode.STE_ENTROPY):
-        raise NotImplementedError(f"{mode.name} generation: {NEXT_SLICE}")
+    QUANTIZED_NOISE and ENTROPY add uniform quantization noise to the
+    window's features, scales and offsets (in ENTROPY scaled by the
+    context's per-anchor step adjustments), drawn from ``generator`` — or
+    taken from ``noise``, a (feat [V, F], scaling [V, 6], offsets
+    [V, K, 3]) tuple of U[-0.5, 0.5) draws (tests inject the JAX key's).
+    STE_ENTROPY rounds them with straight-through gradients under stop
+    gradients.  The entropy modes estimate the window's rate from
+    ``entropy_ctx`` (this window's context, sliced from a shared query)
+    or, without it, from a query of their own."""
     k = cfg.n_offsets
     anchors = state.anchors
     sl = slice(window_start, window_start + cap)
@@ -411,18 +517,54 @@ def generate_neural_gaussians(
     grid_scaling = all_scaling[sl]                               # [V, 6]
     binary_mask = get_mask(anchors, decoded)[sl]                 # [V, K, 1]
 
+    # clamp centres of the quantizers: whole-model means, gradient-free
+    feat_mean = anchors.feat.mean().detach()
+    scaling_mean = all_scaling.mean().detach()
+    offset_mean = anchors.offset.mean().detach()
+    rate = zero_rate(feat.device)
+    n_feat, n_scal, n_off = noise if noise is not None else (None,) * 3
+
     if mode == GenerateMode.QUANTIZED_NOISE:
-        # clamp centres: whole-model means, gradient-free
-        n_feat, n_scal, n_off = noise if noise is not None else (None,) * 3
-        feat = uniform_noise_quantize(
-            feat, Q_FEAT, generator, x_mean=anchors.feat.mean().detach(),
-            noise=n_feat)
+        feat = uniform_noise_quantize(feat, Q_FEAT, generator,
+                                      x_mean=feat_mean, noise=n_feat)
         grid_scaling = uniform_noise_quantize(
-            grid_scaling, Q_SCALING, generator,
-            x_mean=all_scaling.mean().detach(), noise=n_scal)
+            grid_scaling, Q_SCALING, generator, x_mean=scaling_mean,
+            noise=n_scal)
         grid_offsets = uniform_noise_quantize(
-            grid_offsets, Q_OFFSETS, generator,
-            x_mean=anchors.offset.mean().detach(), noise=n_off)
+            grid_offsets, Q_OFFSETS, generator, x_mean=offset_mean,
+            noise=n_off)
+    elif mode in (GenerateMode.ENTROPY, GenerateMode.STE_ENTROPY):
+        ec = entropy_ctx if entropy_ctx is not None else \
+            calc_entropy_context(state, cfg, anchor_w, decoded)
+        if mode == GenerateMode.ENTROPY:
+            q_feat = Q_FEAT * ec.q_feat_adj
+            q_scaling = Q_SCALING * ec.q_scaling_adj
+            q_offsets = Q_OFFSETS * ec.q_offsets_adj
+            feat = uniform_noise_quantize(feat, q_feat, generator,
+                                          x_mean=feat_mean, noise=n_feat)
+            grid_scaling = uniform_noise_quantize(
+                grid_scaling, q_scaling, generator, x_mean=scaling_mean,
+                noise=n_scal)
+            grid_offsets = uniform_noise_quantize(
+                grid_offsets, q_offsets[:, :, None], generator,
+                x_mean=offset_mean, noise=n_off)
+        else:
+            q_feat = Q_FEAT * ec.q_feat_adj.detach()
+            q_scaling = Q_SCALING * ec.q_scaling_adj.detach()
+            q_offsets = Q_OFFSETS * ec.q_offsets_adj.detach()
+            feat = ste_round(feat, q_feat, feat_mean).detach()
+            grid_scaling = ste_round(grid_scaling, q_scaling,
+                                     scaling_mean).detach()
+            grid_offsets = ste_round(grid_offsets, q_offsets[:, :, None],
+                                     offset_mean).detach()
+        rate = _rate_from_context(
+            cfg, feat, grid_scaling, grid_offsets, binary_mask[:, :, 0], ec,
+            q_feat, q_scaling, q_offsets, in_window=in_window,
+            mask_anchor=get_mask_anchor(anchors, decoded)[sl],
+            feat_mean=feat_mean, scaling_mean=scaling_mean,
+            offset_mean=offset_mean)
+    elif mode not in (GenerateMode.FULL_PRECISION, GenerateMode.DECODED):
+        raise ValueError(f"unknown mode {mode}")
 
     # conditions: embed(cam_z) and embed(anchor_z - cam_z)
     embed_time, _ = positional_embedder(cfg.time_multi_res, 1)
@@ -468,4 +610,4 @@ def generate_neural_gaussians(
                             torch.zeros_like(neural_opacity)),
         scaling=scaling_g, rot=rot_g, valid=g_valid,
         neural_opacity=neural_opacity, anchor_xyz=anchor_rep,
-        offsets_world=offsets_world)
+        offsets_world=offsets_world, rate=rate)

@@ -12,7 +12,8 @@ Weights stay in the JAX package's layout — ``{"w": [in, out], "b":
 leaf for leaf.  GELU is the tanh form (``jax.nn.gelu``'s default).
 
 The ``*_init`` functions draw every weight and bias from
-U(-1/sqrt(in), 1/sqrt(in)) with a ``torch.Generator`` — the JAX
+U(-1/sqrt(in), 1/sqrt(in)) with a ``torch.Generator`` (on its own
+device, then moved to the requested one) — the JAX
 package's distributions and shapes; the numbers differ from JAX's
 threefry draws, so tests carry states over instead of re-drawing them.
 """
@@ -33,8 +34,10 @@ def linear_shape(in_dim: int, out_dim: int) -> dict:
 
 
 def _uniform(shape, bound: float, gen: torch.Generator, device):
-    return (torch.rand(shape, generator=gen, dtype=torch.float32,
-                       device=device) * 2.0 - 1.0) * bound
+    """U(-bound, bound), drawn on the generator's device, moved to
+    ``device``."""
+    return ((torch.rand(shape, generator=gen, dtype=torch.float32,
+                        device=gen.device) * 2.0 - 1.0) * bound).to(device)
 
 
 def linear_init(gen: torch.Generator, in_dim: int, out_dim: int,

@@ -1,7 +1,7 @@
 """Frame rendering for decode and training (port of ``can_mirror``,
-``_mirror_tile_perm``, ``render_frame_bidir`` and the mirror-kernel
-branch of ``render_pair``, gsvc_tpu/render/batched.py:49-57, :230-275,
-:330-511).
+``_mirror_tile_perm``, ``render_frame_bidir``, ``_pair_entropy_contexts``
+and the mirror-kernel branch of ``render_pair``,
+gsvc_tpu/render/batched.py:49-57, :230-328, :330-511).
 
 Decode, one frame: TSW window -> neural gaussians -> projection ->
 binning -> the bidirectional composite (kernel B4).  Training, a frame
@@ -22,8 +22,9 @@ import numpy as np
 import torch
 
 from gsvc_tpu_torch.models.gaussians import (
-    GaussianConfig, GenerateMode, ModelState,
-    generate_neural_gaussians, window_for_frame,
+    EntropyContext, GaussianConfig, GenerateMode, ModelState,
+    calc_entropy_context, generate_neural_gaussians, get_anchor,
+    window_for_frame,
 )
 from gsvc_tpu_torch.render.bidir import bidir_composite_attrs
 from gsvc_tpu_torch.render.mirror import mirror_composite_attrs
@@ -99,6 +100,39 @@ def render_frame_bidir(state: ModelState, cfg: GaussianConfig,
     return imgs[0], ts[0], fs
 
 
+def _pair_entropy_contexts(state: ModelState, cfg: GaussianConfig, s1: int,
+                           s2: int, cap: int, decoded: bool, timer=None):
+    """Entropy contexts of two overlapping TSW windows from one query.
+
+    The context is pointwise per anchor (hash features and MLPs), so
+    slices of a query over the union window equal the per-window
+    contexts.  The union is ``cap + slack`` rows, ``slack = min(max(cap //
+    8, 64), capacity - cap)``; when the starts differ by more than the
+    slack, the two windows are queried on their own (the starts are host
+    integers here, so this is an ``if``, where the JAX package has a
+    ``lax.cond``)."""
+    capacity = state.anchors.anchor.shape[0]
+    slack = min(max(cap // 8, 64), capacity - cap)
+    anchor_q = get_anchor(state, decoded)
+    if slack <= 0:
+        # the window spans the whole buffer: both starts are 0
+        ec = calc_entropy_context(state, cfg, anchor_q[s1:s1 + cap],
+                                  decoded, timer=timer)
+        return [ec, ec]
+    s_min = min(max(min(s1, s2), 0), capacity - cap - slack)
+    if max(s1, s2) - s_min <= slack:
+        ecu = calc_entropy_context(
+            state, cfg, anchor_q[s_min:s_min + cap + slack], decoded,
+            timer=timer)
+
+        def cut(off):
+            return EntropyContext(*(v[off:off + cap] for v in ecu))
+
+        return [cut(s1 - s_min), cut(s2 - s_min)]
+    return [calc_entropy_context(state, cfg, anchor_q[s:s + cap], decoded,
+                                 timer=timer) for s in (s1, s2)]
+
+
 class PairRender(NamedTuple):
     """All four views of a frame pair, composited in one launch."""
 
@@ -121,23 +155,32 @@ def render_pair(state: ModelState, cfg: GaussianConfig, z1: float,
 
     ``means2d``: optional [4, V*K, 2] zeros whose gradients carry the
     per-view screen gradients (densification statistics).  ``noise``:
-    optional per-frame QUANTIZED_NOISE draws (see
+    optional per-frame QUANTIZED_NOISE / ENTROPY draws (see
     ``generate_neural_gaussians``); otherwise ``generator`` draws them.
-    ``timer`` (optional, with ``mark(name)``) is passed to the composite."""
+    In the entropy modes both frames' contexts come from one union-window
+    query (``_pair_entropy_contexts``).  ``timer`` (optional, with
+    ``mark(name)``) is passed to the composite and the hash-grid
+    kernels."""
     if not can_mirror(settings):
         raise ValueError(
             f"render_pair composites through the mirror kernels, which "
             f"need a tile-aligned width: {settings.image_width} is not a "
             f"multiple of tile_w {settings.tile_w}")
     mperm = torch.from_numpy(_mirror_tile_perm(settings)).long()
+    wins = [window_for_frame(state, cfg, z, window_cap) for z in (z1, z2)]
+    ecs = [None, None]
+    if mode in (GenerateMode.ENTROPY, GenerateMode.STE_ENTROPY):
+        ecs = _pair_entropy_contexts(state, cfg, wins[0][0], wins[1][0],
+                                     window_cap, decoded, timer=timer)
     frames, attrs_l, lists_l, counts_l = [], [], [], []
     for fi, z in enumerate((z1, z2)):
-        start, in_window = window_for_frame(state, cfg, z, window_cap)
+        start, in_window = wins[fi]
         gss = generate_neural_gaussians(
             state, cfg, frame_z=z, cam_z=z, window_start=start,
             in_window=in_window, cap=window_cap, mode=mode, decoded=decoded,
             generator=generator,
-            noise=None if noise is None else noise[fi])
+            noise=None if noise is None else noise[fi],
+            entropy_ctx=ecs[fi])
         proj = project_gaussians(gss.xyz, gss.scaling, gss.rot, gss.valid,
                                  z, x_min, y_min, scale, settings)
         tile_lists, counts, dropped, ovf, nrend = _bin_gaussians(proj,
@@ -162,7 +205,7 @@ def render_pair(state: ModelState, cfg: GaussianConfig, z1: float,
             in_window=in_window, radii=proj.radius,
             visibility_filter=proj.radius > 0, selection_mask=gss.valid,
             neural_opacity=gss.neural_opacity, scaling=gss.scaling,
-            num_rendered=nrend, overflow=ovf, gaussians=gss,
+            num_rendered=nrend, overflow=ovf, rate=gss.rate, gaussians=gss,
             harmful_overflow=tile_harmful_overflow(
                 settings, ts[vi].detach(), dr_f if vi % 2 == 0 else dr_b)))
     return PairRender(images=images, transmittances=ts,

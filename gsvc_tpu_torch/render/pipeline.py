@@ -9,14 +9,13 @@ from typing import NamedTuple
 import torch
 
 from gsvc_tpu_torch.models.gaussians import (
-    GaussianConfig, GeneratedGaussians,
+    GaussianConfig, GeneratedGaussians, RatePack,
 )
 from gsvc_tpu_torch.render.splat import RasterSettings
 
 
 class RenderResults(NamedTuple):
-    """Per-render record (reference: common/base.py:9-27).  The JAX
-    record's ``rate`` is absent: the ported phases estimate no rate."""
+    """Per-render record (reference: common/base.py:9-27)."""
 
     image: torch.Tensor              # [3, H, W] channel-first
     transmittance: torch.Tensor      # [H, W]
@@ -29,6 +28,7 @@ class RenderResults(NamedTuple):
     scaling: torch.Tensor            # [V*K, 3] generated gaussian scales
     num_rendered: torch.Tensor
     overflow: torch.Tensor
+    rate: RatePack                   # the window's rate (entropy modes)
     gaussians: GeneratedGaussians
     # dropped copies at tiles whose final T >= 1/255 (visible loss); the
     # capacity-growth policy reacts to this, raw overflow is telemetry

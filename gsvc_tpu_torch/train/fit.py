@@ -9,9 +9,18 @@ flows as int8 with a per-frame scale (zeros when the GOP has none).
 Anchor buffers are padded to a capacity and z-sorted, so a frame's TSW
 window is one slice.
 
-Ported: the FULL_PRECISION and QUANTIZED_NOISE phases.  Reaching an
-entropy phase or a densify epoch raises ``NotImplementedError``: the
-next slice of the port.
+All four phases of the schedule are ported (FULL_PRECISION,
+QUANTIZED_NOISE, ENTROPY, STE_ENTROPY; past the schedule's end the fit
+stays in STE_ENTROPY), and so is the densify epoch, which runs after an
+iteration's step and before its log: by default as an index plan built
+on the host and applied with gathers on the device
+(``pipeline.device_densify``), else as host surgery.  Both grow the
+capacity by 1.5x (rounded to 1024) when the anchors outgrow it.
+
+Random numbers: the initial networks are drawn from a CPU
+``torch.Generator(seed)`` and moved to the device, so a seed gives the
+same networks on every device; the per-step quantisation noise comes
+from a generator on the fit device (``self.generator``).
 """
 
 from __future__ import annotations
@@ -30,16 +39,17 @@ from gsvc_tpu_torch.framecube.frame import FrameCubeDataset
 from gsvc_tpu_torch.framecube.pointcloud import init_point_cloud
 from gsvc_tpu_torch.metrics.image import psnr
 from gsvc_tpu_torch.models.gaussians import (
-    NEXT_SLICE, GaussianConfig, GenerateMode, init_model, mean_nn3_distance,
-    update_anchor_bound,
+    AnchorState, GaussianConfig, GenerateMode, init_model,
+    mean_nn3_distance, update_anchor_bound,
 )
 from gsvc_tpu_torch.render.batched import render_frame_bidir
 from gsvc_tpu_torch.render.pipeline import make_raster_settings
 from gsvc_tpu_torch.train.controller import TrainingController
-from gsvc_tpu_torch.train.optim import adam_init
+from gsvc_tpu_torch.train.densify import adjust_anchors, resort_by_z
+from gsvc_tpu_torch.train.optim import AdamState, adam_init
 from gsvc_tpu_torch.train.schedules import build_schedules
 from gsvc_tpu_torch.train.trainer import (
-    gt_f32, init_stats, make_step_body,
+    TrainStats, gt_f32, init_stats, make_step_body,
 )
 
 # rasterizer settings the port serves: all name the same compositing
@@ -97,6 +107,8 @@ class GOPFitter:
         self.log = log_fn or (lambda *a, **k: None)
         self.seed = seed
         self.rng = np.random.default_rng(seed)
+        # per-step noise on the fit device; the initial networks come from
+        # a CPU generator (below), the same on every device
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         if cfg.pipeline.rasterizer not in _MIRROR_RASTERIZERS:
@@ -111,8 +123,8 @@ class GOPFitter:
         pts = init_point_cloud(dataset.x_min, dataset.y_min, dataset.z_min,
                                n=opt.init_anchor_num, rng=self.rng)
         self.capacity = _round_up(int(opt.init_anchor_num * 1.5), 1024)
-        self.state = init_model(self.generator, self.gcfg, pts,
-                                self.capacity,
+        self.state = init_model(torch.Generator().manual_seed(seed),
+                                self.gcfg, pts, self.capacity,
                                 voxel_size=cfg.model.voxel_size,
                                 device=self.device)
         self.voxel_size = self._resolve_voxel_size(pts, cfg.model.voxel_size)
@@ -218,6 +230,135 @@ class GOPFitter:
             return True
         return False
 
+    # -- densification -----------------------------------------------------
+    def _stats_prefix(self, n: int) -> dict:
+        """The densify accumulators of the live prefix, as host numpy."""
+        k = self.gcfg.n_offsets
+        st = self.stats
+        return {
+            "opacity_accum": st.opacity_accum[:n].cpu().numpy(),
+            "anchor_demon": st.anchor_demon[:n].cpu().numpy(),
+            "offset_gradient_accum":
+                st.offset_gradient_accum[:n * k].cpu().numpy(),
+            "offset_denom": st.offset_denom[:n * k].cpu().numpy(),
+        }
+
+    def _maybe_calibrate(self, stats: dict):
+        """``auto_densify_threshold``: set the threshold once, at the
+        first epoch, from the candidate fraction."""
+        opt = self.cfg.optimization
+        if not opt.auto_densify_threshold or getattr(
+                self, "_threshold_calibrated", False):
+            return
+        from gsvc_tpu_torch.train.calibrate import \
+            calibrate_densify_threshold
+
+        new_thr = calibrate_densify_threshold(
+            stats, opt, opt.densify_target_fraction)
+        self.log(f"densify threshold calibrated: "
+                 f"{opt.densify_grad_threshold:.6f} -> {new_thr:.6f} "
+                 f"(target fraction {opt.densify_target_fraction})")
+        opt.densify_grad_threshold = new_thr
+        self._threshold_calibrated = True
+
+    def _densify(self):
+        """One densify epoch (grow, prune, z re-sort, re-pad), then the
+        window and the step are rebuilt if they changed."""
+        if self.cfg.pipeline.device_densify:
+            return self._densify_device()
+        return self._densify_host()
+
+    def _densify_host(self):
+        """The host-surgery path: the live prefix of every anchor field,
+        both Adam moments and the accumulators go to the host, through
+        ``adjust_anchors`` and ``resort_by_z``, and back padded."""
+        n = self.state.n_active
+        k = self.gcfg.n_offsets
+
+        def prefix(tree):
+            return {f: getattr(tree, f)[:n].cpu().numpy().copy()
+                    for f in AnchorState._fields}
+
+        anchors = prefix(self.state.anchors)
+        adam_m, adam_v = prefix(self.adam.m[0]), prefix(self.adam.v[0])
+        stats = {f: v.copy() for f, v in self._stats_prefix(n).items()}
+        self._maybe_calibrate(stats)
+        res = adjust_anchors(anchors, adam_m, adam_v, stats, self.cfg.model,
+                             self.cfg.optimization, self.voxel_size, self.rng)
+        resort_by_z(anchors, adam_m, adam_v, stats, k)
+
+        n_new = res.n_active
+        rebuild = False
+        if n_new > self.capacity:
+            self.capacity = _round_up(int(n_new * 1.5), 1024)
+            rebuild = True
+        cap, dev = self.capacity, self.device
+
+        def pad_to(x, rows):
+            out = np.zeros((rows,) + x.shape[1:], np.float32)
+            out[:x.shape[0]] = x
+            return torch.from_numpy(out).to(dev)
+
+        anchor_pad = np.zeros((cap, 3), np.float32)
+        anchor_pad[:n_new] = anchors["anchor"]
+        anchor_pad[n_new:, 2] = 1e9
+        fields = {f: pad_to(anchors[f], cap) for f in AnchorState._fields
+                  if f != "anchor"}
+        new_anchors = AnchorState(anchor=torch.from_numpy(anchor_pad).to(dev),
+                                  **fields)
+        new_m = AnchorState(**{f: pad_to(adam_m[f], cap)
+                               for f in AnchorState._fields})
+        new_v = AnchorState(**{f: pad_to(adam_v[f], cap)
+                               for f in AnchorState._fields})
+        self.state = self.state._replace(anchors=new_anchors, n_active=n_new)
+        self.adam = AdamState(m=(new_m, self.adam.m[1]),
+                              v=(new_v, self.adam.v[1]), step=self.adam.step)
+        self.stats = TrainStats(
+            opacity_accum=pad_to(stats["opacity_accum"], cap),
+            anchor_demon=pad_to(stats["anchor_demon"], cap),
+            offset_gradient_accum=pad_to(stats["offset_gradient_accum"],
+                                         cap * k),
+            offset_denom=pad_to(stats["offset_denom"], cap * k))
+        if self._maybe_resize_window(anchor_pad[:, 2], n_new) or rebuild:
+            self._build_step()
+        return res
+
+    def _densify_device(self):
+        """The index-plan path (train/densify_plan.py): the host reads the
+        small decision planes and the candidates' offsets, builds the
+        grow/prune/z-sort plan, and the device applies it with gathers."""
+        from gsvc_tpu_torch.train.densify_plan import apply_plan, build_plan
+
+        n = self.state.n_active
+        anchors = self.state.anchors
+        stats = self._stats_prefix(n)
+        self._maybe_calibrate(stats)
+        offsets_flat = anchors.offset.reshape(-1, 3)
+
+        def fetch_offsets(idx):
+            idx = torch.from_numpy(np.asarray(idx, np.int64)).to(self.device)
+            return offsets_flat[idx].cpu().numpy()
+
+        plan = build_plan(
+            anchor=anchors.anchor[:n].cpu().numpy(),
+            scaling=anchors.scaling[:n].cpu().numpy(), stats=stats,
+            fetch_offsets=fetch_offsets, mc=self.cfg.model,
+            opt=self.cfg.optimization, voxel_size=self.voxel_size,
+            rng=self.rng, capacity=self.capacity)
+        new_anchors, new_m, new_v, new_stats = apply_plan(
+            plan, anchors, self.adam.m[0], self.adam.v[0], self.stats)
+        rebuild = plan.capacity_out != self.capacity
+        self.capacity = plan.capacity_out
+        self.state = self.state._replace(anchors=new_anchors,
+                                         n_active=plan.result.n_active)
+        self.adam = AdamState(m=(new_m, self.adam.m[1]),
+                              v=(new_v, self.adam.v[1]), step=self.adam.step)
+        self.stats = new_stats
+        if self._maybe_resize_window(plan.z_full, plan.result.n_active) \
+                or rebuild:
+            self._build_step()
+        return plan.result
+
     # -- overflow reaction -------------------------------------------------
     def _react_to_overflow(self, overflow: int, it: int,
                            strikes_to_act: int = 2,
@@ -300,13 +441,17 @@ class GOPFitter:
     # -- main loop ---------------------------------------------------------
     def fit(self, iterations: Optional[int] = None,
             eval_every: int = 0, log_every: int = 100,
+            rate_log_every: int = 0,
             checkpoint_iterations: tuple = (),
             checkpoint_dir: Optional[str] = None,
             metrics_writer=None) -> FitReport:
         """Run the loop from the controller's iteration to ``iterations``
-        (default: the config's).  Logs every ``log_every`` iterations
-        (reading the metrics on the host only there), evaluates every
-        ``eval_every`` and checkpoints at ``checkpoint_iterations``."""
+        (default: the config's).  Per iteration, in the JAX package's
+        order: the step, the densify epoch when due, the log every
+        ``log_every`` iterations (reading the metrics on the host only
+        there), the evaluation every ``eval_every``, the checkpoint at
+        ``checkpoint_iterations`` and, in the entropy phases, the
+        whole-model rate estimate every ``rate_log_every``."""
         opt = self.cfg.optimization
         total = iterations if iterations is not None else opt.iterations
         report = FitReport()
@@ -329,12 +474,14 @@ class GOPFitter:
         while it <= total:
             metrics = self._run_single(it, n_frames)
             if self.controller.gaussian_adjust_anchor:
-                raise NotImplementedError(
-                    f"iteration {it} is a densify epoch: {NEXT_SLICE}")
+                res = self._densify()
+                self.log(f"iter {it}: densify +{res.n_grown} "
+                         f"-{res.n_pruned} -> {res.n_active}")
 
             if log_every and it % log_every == 0:
                 rec = {"iter": it, "loss": float(metrics.loss),
-                       "psnr": float(metrics.psnr), "bpp": 0.0,
+                       "psnr": float(metrics.psnr),
+                       "bpp": float(metrics.bit_per_param),
                        "n_active": self.state.n_active,
                        "l1": float(metrics.l1),
                        "optical": float(metrics.optical_loss)}
@@ -345,7 +492,7 @@ class GOPFitter:
                 ovf = int(metrics.overflow)
                 harmful = int(metrics.harmful_overflow)
                 self.log(f"iter {it}: loss={rec['loss']:.5f} "
-                         f"psnr={rec['psnr']:.2f} "
+                         f"psnr={rec['psnr']:.2f} bpp={rec['bpp']:.4f} "
                          f"anchors={self.state.n_active} overflow={ovf} "
                          f"harmful={harmful} ({time.time() - t0:.1f}s)")
                 self._react_to_overflow(
@@ -353,7 +500,10 @@ class GOPFitter:
                     harmful=harmful)
 
             if eval_every and it % eval_every == 0:
-                ev = self.evaluate(mode=self.controller.render_mode)
+                mode = self.controller.render_mode
+                if mode is None:
+                    mode = GenerateMode.STE_ENTROPY
+                ev = self.evaluate(mode=mode)
                 report.evals.append({"iter": it, "psnr": ev["psnr"]})
                 self.log(f"iter {it}: eval psnr={ev['psnr']:.2f}")
 
@@ -364,6 +514,24 @@ class GOPFitter:
                 save_checkpoint(path, self, it)
                 self.log(f"iter {it}: checkpoint saved {path}")
 
+            # estimated whole-model rate (the reference logs it every 100
+            # iterations of the entropy phases, pipeline/train.py:547)
+            if (rate_log_every and self.controller.entropy_constrained
+                    and it % rate_log_every == 0):
+                from gsvc_tpu_torch.codec.estimate import estimate_final_bits
+
+                est = estimate_final_bits(self.state, self.gcfg)
+                mb = 8 * 2 ** 20
+                self.log(
+                    f"iter {it}: est bits MB "
+                    f"anchor={est.bit_anchor / mb:.3f} "
+                    f"feat={est.bit_feat / mb:.3f} "
+                    f"scaling={est.bit_scaling / mb:.3f} "
+                    f"offsets={est.bit_offsets / mb:.3f} "
+                    f"hash={est.bit_hash / mb:.3f} "
+                    f"masks={est.bit_masks / mb:.3f} "
+                    f"mlp={est.bit_mlp / mb:.3f} total={est.total / mb:.3f}")
+
             self.controller.step()
             it += 1
 
@@ -371,17 +539,15 @@ class GOPFitter:
         if metrics is not None:
             report.loss = float(metrics.loss)
             report.psnr = float(metrics.psnr)
+            report.bit_per_param = float(metrics.bit_per_param)
         report.n_active = self.state.n_active
         return report
 
     def _run_single(self, it: int, n_frames: int):
         """One iteration: draw the frame pair, run the step."""
         mode = self.controller.render_mode
-        if mode is None or mode in (GenerateMode.ENTROPY,
-                                    GenerateMode.STE_ENTROPY):
-            name = "STE_ENTROPY" if mode is None else mode.name
-            raise NotImplementedError(
-                f"iteration {it} is in the {name} phase: {NEXT_SLICE}")
+        if mode is None:  # past the schedule (GenerateMode 0 is falsy)
+            mode = GenerateMode.STE_ENTROPY
         do_stats = self.controller.gaussian_statis
         fidx = int(self.rng.integers(0, max(n_frames - 1, 1)))
         f2 = min(fidx + 1, n_frames - 1)
@@ -399,13 +565,12 @@ class GOPFitter:
     def evaluate(self, mode: GenerateMode = GenerateMode.FULL_PRECISION,
                  frames: Optional[list] = None, decoded: bool = False):
         """Mean PSNR of the fwd/flip-averaged frames (kernel B4).  The
-        noise-quantised phase evaluates in FULL_PRECISION; entropy modes
-        are the next slice."""
+        noise-quantised phases are evaluated without noise: QUANTIZED_NOISE
+        in FULL_PRECISION, ENTROPY with STE rounding (STE_ENTROPY)."""
         if mode == GenerateMode.QUANTIZED_NOISE:
             mode = GenerateMode.FULL_PRECISION
-        if mode not in (GenerateMode.FULL_PRECISION, GenerateMode.DECODED):
-            name = "STE_ENTROPY" if mode is None else mode.name
-            raise NotImplementedError(f"evaluation in {name}: {NEXT_SLICE}")
+        elif mode == GenerateMode.ENTROPY:
+            mode = GenerateMode.STE_ENTROPY
         d = self.dataset
         idxs = frames if frames is not None else range(d.num_frames)
         vals = []

@@ -24,8 +24,10 @@ import torch
 from gsvc_tpu_torch.config import OptimizationConfig
 from gsvc_tpu_torch.metrics.image import psnr, ssim
 from gsvc_tpu_torch.models.gaussians import (
-    NEXT_SLICE, GaussianConfig, GenerateMode, ModelState,
+    GaussianConfig, GenerateMode, ModelState,
 )
+from gsvc_tpu_torch.ops.entropy import binary_vxl_size
+from gsvc_tpu_torch.ops.quant import ste_binary
 from gsvc_tpu_torch.render.batched import render_pair
 from gsvc_tpu_torch.render.pipeline import RenderResults
 from gsvc_tpu_torch.render.splat import RasterSettings
@@ -54,14 +56,18 @@ def init_stats(capacity: int, n_offsets: int, device="cpu") -> TrainStats:
 
 class StepMetrics(NamedTuple):
     """One step's telemetry, as device tensors (read on the host only at
-    log points).  The JAX record's rate fields are 0 in the ported phases
-    and absent here."""
+    log points).  The bits per parameter are the four views' mean (0
+    outside the entropy phases)."""
 
     loss: torch.Tensor
     l1: torch.Tensor
     psnr: torch.Tensor
     scaling_reg: torch.Tensor
     optical_loss: torch.Tensor
+    bit_per_param: torch.Tensor
+    bit_per_feat_param: torch.Tensor
+    bit_per_scaling_param: torch.Tensor
+    bit_per_offsets_param: torch.Tensor
     num_rendered: torch.Tensor
     overflow: torch.Tensor
     active_gaussians: torch.Tensor
@@ -144,15 +150,13 @@ def make_pair_loss(cfg: GaussianConfig, settings: RasterSettings,
                    window_cap: int, opt: OptimizationConfig,
                    width: int, height: int, scale: float,
                    x_min: float, y_min: float):
-    """The frame-pair loss (4 renders + every loss term of the ported
-    phases).  The entropy phases' rate terms raise: next slice."""
+    """The frame-pair loss: 4 renders and every loss term, with the rate,
+    hash-bit and mask terms in the entropy phases."""
     k = cfg.n_offsets
     use_optical = opt.optical_lambda != 0.0
 
     def _loss(st: ModelState, z1, z2, gt1, gt2, flow, mode, m2d,
               generator=None, noise=None, timer=None):
-        if mode in (GenerateMode.ENTROPY, GenerateMode.STE_ENTROPY):
-            raise NotImplementedError(f"{mode.name} loss: {NEXT_SLICE}")
         pr = render_pair(st, cfg, z1, z2, x_min, y_min, scale, settings,
                          window_cap, mode, generator=generator,
                          means2d=m2d, noise=noise, timer=timer)
@@ -186,12 +190,27 @@ def make_pair_loss(cfg: GaussianConfig, settings: RasterSettings,
                 + opt.scaling_reg * scaling_reg
                 + opt.opacity_reg * opacity_reg
                 + opt.optical_lambda * optical)
+        bpp = sum(r.rate.bit_per_param for r in renders)
+        if mode in (GenerateMode.ENTROPY, GenerateMode.STE_ENTROPY):
+            hash_bin = (ste_binary(st.nets.hash_table) + 1) / 2
+            _, bit_hash, _, _ = binary_vxl_size(hash_bin)
+            denom = st.anchors.anchor.shape[0] * (cfg.feat_dim + 6 + 3 * k)
+            loss = loss + opt.lmbda * (bpp + bit_hash / denom)
+            loss = loss + opt.mask_reg * torch.mean(
+                torch.sigmoid(st.anchors.mask))
         with torch.no_grad():
             ps = (psnr(image1, gt1) + psnr(image2, gt2)) / 2.0
             metrics = StepMetrics(
                 loss=loss.detach(), l1=l1.detach(), psnr=ps,
                 scaling_reg=scaling_reg.detach(),
                 optical_loss=optical.detach(),
+                bit_per_param=bpp.detach() / 4.0,
+                bit_per_feat_param=sum(
+                    r.rate.bit_per_feat_param for r in renders) / 4.0,
+                bit_per_scaling_param=sum(
+                    r.rate.bit_per_scaling_param for r in renders) / 4.0,
+                bit_per_offsets_param=sum(
+                    r.rate.bit_per_offsets_param for r in renders) / 4.0,
                 num_rendered=sum(r.num_rendered for r in renders),
                 overflow=sum(r.overflow for r in renders),
                 active_gaussians=sum(torch.sum(r.visibility_filter)

@@ -5,9 +5,13 @@ One file per checkpoint, in the JAX package's format: a pickled dict of
 NumPy arrays keyed by tree paths — model state, Adam moments,
 densification accumulators and loop counters — so either package reads
 the other's files.  ``jax_key`` holds the uint32 [2] array of
-``PRNGKey(seed)`` (the JAX loader requires the key); the torch
-generator's state goes under ``torch_generator``, which the JAX loader
-ignores.  Loading reads numpy arrays and plain Python values only.
+``PRNGKey(seed)`` (the JAX loader requires the key); the state of the
+fitter's noise generator goes under ``torch_generator`` and its device
+type under ``torch_generator_device``, which the JAX loader ignores.  A
+generator state only loads into a generator of the same device type (a
+CUDA state is 16 bytes, a CPU state 5,056), so on a mismatch the loader
+reseeds the noise generator from (seed, iteration) and logs it.
+Loading reads numpy arrays and plain Python values only.
 """
 
 from __future__ import annotations
@@ -57,6 +61,7 @@ def save_checkpoint(path: str, fitter, iteration: int) -> None:
         "np_rng": fitter.rng.bit_generator.state,
         "jax_key": prng_key(fitter.seed),
         "torch_generator": fitter.generator.get_state().numpy(),
+        "torch_generator_device": fitter.generator.device.type,
         "gaussian_cap": fitter.settings.gaussian_cap,
         "tiles_per_gaussian": fitter.settings.tiles_per_gaussian,
         "copy_budget_factor": fitter.settings.copy_budget_factor,
@@ -81,6 +86,38 @@ def read_checkpoint(path: str) -> dict:
         return _CheckpointUnpickler(io.BytesIO(f.read())).load()
 
 
+def _seed_of(p: dict, default: int) -> int:
+    """The run's seed from the stored ``PRNGKey(seed)`` words."""
+    key = p.get("jax_key")
+    if key is None:
+        return int(default)
+    hi, lo = (int(v) for v in np.asarray(key, np.uint32).reshape(-1)[:2])
+    return (hi << 32) | lo
+
+
+def _restore_generator(fitter, p: dict) -> None:
+    """Restore the noise generator's state when it was saved on the same
+    device type (inferred from the state's size for checkpoints that
+    predate ``torch_generator_device``), else reseed it from (seed,
+    iteration)."""
+    state = torch.from_numpy(np.asarray(p["torch_generator"], np.uint8))
+    gen = fitter.generator
+    saved = p.get("torch_generator_device")
+    same = (saved == gen.device.type if saved is not None
+            else state.numel() == gen.get_state().numel())
+    if same:
+        gen.set_state(state)
+        return
+    seed, it = _seed_of(p, fitter.seed), int(p["iteration"])
+    new_seed = int(np.random.SeedSequence([seed, it]).generate_state(
+        1, np.uint64)[0])
+    gen.manual_seed(new_seed)
+    fitter.log(f"checkpoint: the noise generator's state was saved on "
+               f"{saved or f'another device ({state.numel()} bytes)'} and "
+               f"does not load on {gen.device.type}; reseeded from (seed "
+               f"{seed}, iteration {it})")
+
+
 def load_checkpoint(path: str, fitter) -> int:
     """Restore into an already-constructed GOPFitter (same config and
     dataset), from a file of either package.  Returns the iteration to
@@ -94,8 +131,7 @@ def load_checkpoint(path: str, fitter) -> int:
     fitter.controller.current_iteration = p["controller_iteration"]
     fitter.rng.bit_generator.state = p["np_rng"]
     if "torch_generator" in p:
-        fitter.generator.set_state(torch.from_numpy(
-            np.asarray(p["torch_generator"], np.uint8)))
+        _restore_generator(fitter, p)
     if "gaussian_cap" in p:
         fitter.settings = dataclasses.replace(
             fitter.settings, gaussian_cap=p["gaussian_cap"],

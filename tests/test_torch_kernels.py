@@ -15,12 +15,23 @@ gradient magnitude of each attribute — the kernel forms each in-chunk
 suffix as the chunk's sum minus a running prefix, the plain version by a
 reverse cumsum, and 1/(1 - alpha) amplifies that rounding up to 100x;
 the pixel sums are also taken in other orders.
+
+Hash-grid kernels B3f/B3b (at the fixture's spec, F = 8, 12 3D + 4 2D
+levels, N = 25k and 150k queries): the forward equals the plain version
+to 1e-6 (both round the cell, the corner sums and the division alike);
+the gradients to 1e-4 of the largest gradient magnitude — the table
+gradient is an atomic sum whose order changes from run to run (float32,
+up to ~10^3 terms per row at N = 150k: n eps ~ 6e-5 relative), and the
+kernel forms each position gradient as sum_c r_c dw_c with r_c = sum_f
+g_f (V_cf - out_f) / W where autograd takes the two terms apart.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from gsvc_tpu_torch.ops import hashgrid_kernels as hk
+from gsvc_tpu_torch.ops.hashgrid import make_mix_grid_spec
 from gsvc_tpu_torch.render import bidir, mirror
 from gsvc_tpu_torch.render.splat import T_EPS, RasterSettings
 
@@ -174,3 +185,121 @@ def test_mirror_views_do_not_collide():
         assert scale > 0
         err = float((m2d.grad[view] - dm_p[view]).abs().max())
         assert err <= BWD_REL * scale, (view, err, scale)
+
+
+# the fixture's hash grid (artifacts/rd_r5/realtex_0.004/cfg_args.yaml)
+FIXTURE_GRID = make_mix_grid_spec(
+    n_features=8,
+    resolutions_list=(18, 24, 33, 44, 59, 80, 108, 148, 201, 275, 376, 514),
+    log2_hashmap_size=13, resolutions_list_2d=(130, 258, 514, 1026),
+    log2_hashmap_size_2d=15)
+HASH_GRAD_REL = 1e-4
+
+
+def _hash_inputs(n, seed, binary):
+    """A seeded table (random signs, as the STE-binarised table of
+    training, or uniform values) and queries: uniform in [0, 1] with the
+    first rows on the border (0, 1) and on cell edges of the first 3D
+    level."""
+    rng = np.random.default_rng(seed)
+    spec = FIXTURE_GRID
+    if binary:
+        table = np.where(rng.random((spec.total_rows, 8)) < 0.5, -1.0, 1.0)
+    else:
+        table = rng.uniform(-1, 1, (spec.total_rows, 8))
+    x = rng.uniform(0, 1, (n, 3))
+    x[:64] = rng.choice([0.0, 1.0], (64, 3))
+    res = spec.grid_3d.resolutions[0]
+    x[64:128] = (rng.integers(1, res - 2, (64, 3)) - 0.5) / (res - 2)
+    return (torch.from_numpy(table.astype(np.float32)).cuda(),
+            torch.from_numpy(x.astype(np.float32)).cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [25_000, 150_000])
+@pytest.mark.parametrize("binary", [True, False])
+def test_hashgrid_kernels_match_plain(n, binary):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    table, x = _hash_inputs(n, seed=n, binary=binary)
+    spec = FIXTURE_GRID
+    before = hk.hashgrid_forward.launches
+    out_k = hk.hashgrid_forward(table, x, spec)
+    assert hk.hashgrid_forward.launches == before + 1
+    out_p = hk.hashgrid_fwd_plain(table, x, spec)
+    torch.cuda.synchronize()
+    assert out_k.shape == (n, spec.output_dim)
+    torch.testing.assert_close(out_k, out_p, atol=1e-6, rtol=0)
+
+    g = torch.randn(out_p.shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(n))
+    before = hk.hashgrid_backward.launches
+    gt_k, gx_k = hk.hashgrid_backward(table, x, g, spec)
+    assert hk.hashgrid_backward.launches == before + 1
+    gt_p, gx_p = hk.hashgrid_bwd_plain(table, x, g, spec)
+    torch.cuda.synchronize()
+    for got, want in ((gt_k, gt_p), (gx_k, gx_p)):
+        assert torch.isfinite(got).all()
+        scale = float(want.abs().max())
+        assert scale > 0
+        err = float((got - want).abs().max())
+        assert err <= HASH_GRAD_REL * scale, (err, scale)
+
+
+@pytest.mark.cuda
+def test_hashgrid_autograd_through_kernels():
+    """mix_grid_encode_kernel with the STE binarisation: the gradients of
+    a weighted output sum reach the raw table (inside [-1, 1]) and the
+    positions as the plain version's autograd gives them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from gsvc_tpu_torch.ops.hashgrid import mix_grid_encode
+    from gsvc_tpu_torch.ops.quant import ste_binary
+
+    table, x = _hash_inputs(5000, seed=3, binary=False)
+    table = table * 1.5
+    w = torch.randn((5000, FIXTURE_GRID.output_dim), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(8))
+    grads = []
+    for fn in (hk.mix_grid_encode_kernel, mix_grid_encode):
+        t = table.clone().requires_grad_(True)
+        xx = x.clone().requires_grad_(True)
+        (fn(t, xx, FIXTURE_GRID, binarize=ste_binary) * w).sum().backward()
+        grads.append((t.grad, xx.grad))
+    torch.cuda.synchronize()
+    for got, want in zip(*grads):
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= HASH_GRAD_REL * scale
+    assert float(grads[0][0][table.abs() > 1].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_seed_gives_the_same_networks_on_cpu_and_card():
+    """GOPFitter(seed, "cuda") and GOPFitter(seed, "cpu") start from
+    equal hash tables and MLP weights (drawn on the CPU, then moved)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from gsvc_tpu_torch.config import (
+        Config, ModelConfig, OptimizationConfig, PipelineConfig,
+    )
+    from gsvc_tpu_torch.framecube.frame import FrameCubeDataset
+    from gsvc_tpu_torch.train.fit import GOPFitter
+    from gsvc_tpu_torch.train.optim import tree_leaves
+
+    cfg = Config(
+        model=ModelConfig(anchor_feature_dim=8, n_offsets=4, threshold=0.3,
+                          time_multi_res=4, offset_multi_res=4, log2=6,
+                          log2_2D=7, grid_feature_dim=2,
+                          resolutions_list=(6, 10),
+                          resolutions_list_2D=(12, 20)),
+        pipeline=PipelineConfig(tile_h=8, tile_w=16, visible_capacity=256,
+                                gaussian_chunk=32),
+        optimization=OptimizationConfig(init_anchor_num=120))
+    frames = np.random.default_rng(0).integers(0, 256, (3, 24, 32, 3),
+                                               dtype=np.uint8)
+    nets = [GOPFitter(cfg, FrameCubeDataset(images=frames), seed=7,
+                      device=dev).state.nets for dev in ("cuda", "cpu")]
+    leaves = [tree_leaves(n) for n in nets]
+    assert len(leaves[0]) == len(leaves[1]) > 8
+    for a, b in zip(*leaves):
+        assert torch.equal(a.cpu(), b)

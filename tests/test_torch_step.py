@@ -1,16 +1,27 @@
 """One training step of the port against the JAX package's on the same
 carried-over state and numpy-seeded frames and flow: the loss, every
-parameter leaf's gradient, the parameters after Adam and the
-densification statistics, with and without ``do_stats``.
+parameter leaf's gradient (the hash table and the entropy nets included),
+the parameters after Adam, the densification statistics and the bits per
+parameter — in FULL_PRECISION with and without ``do_stats``, in ENTROPY
+(with JAX's noise injected) and in STE_ENTROPY.
 
 The JAX side runs ``make_pair_loss(rasterizer="pallas_train")`` (kernels
 B1/B2 in Pallas interpret mode), then its own ``adam_update`` and
 ``accumulate_stats``; the port runs ``make_step_body`` on the CPU (the
 kernels' plain versions).  Tolerances:
 
-* loss rtol 1e-5: float32 rounding of the same terms;
+* loss and bits per parameter rtol 1e-5: float32 rounding of the same
+  terms;
 * gradients rtol 2e-3 / atol 2e-4, as the mirror backward's
-  (tests/test_torch_mirror.py states why);
+  (tests/test_torch_mirror.py states why).  In the entropy modes every
+  leaf also receives the rate's gradient, which passes through
+  d(bits)/d(mean, scale) = (phi(u) - phi(l)) / (sigma L ln 2): float32 erf
+  error divided by a likelihood L that is a difference of two CDFs near
+  1.  Against a float64 evaluation of the window rate, JAX's float32
+  gradients are off by up to 3.1e-3 of a leaf's largest value and the
+  port's by 3.9e-4 (tests/test_torch_entropy.py::
+  test_rate_gradients_against_float64), so there the absolute floor is
+  4e-3 of each leaf's largest gradient;
 * parameters after Adam: Adam's first step moves every element by
   lr * g / (|g| + 1e-15), about lr * sign(g).  Where JAX's gradient is
   resolved (|g| > 10 atol) the two steps agree to 1e-3 lr; below that
@@ -52,11 +63,19 @@ from gsvc_tpu_torch.train.trainer import (
 )
 from tests.test_batched import GEOM, WINDOW_CAP, Z1, Z2, settings_for, \
     tiny_model
+from tests.test_torch_mirror import _jax_pair_noise
 
 RTOL, ATOL = 2e-3, 2e-4
 WIDTH, HEIGHT = 48, 40
 OPT = dict(optical_lambda=5.0, scaling_reg=0.01, opacity_reg=0.01,
-           lambda_dssim=0.2)
+           lambda_dssim=0.2, lmbda=0.05, mask_reg=0.01)
+# fixture id: (mode, do_stats)
+CASES = {"no_stats": ("FULL_PRECISION", False),
+         "do_stats": ("FULL_PRECISION", True),
+         "entropy": ("ENTROPY", True),
+         "ste_entropy": ("STE_ENTROPY", False)}
+BITS = ("bit_per_param", "bit_per_feat_param", "bit_per_scaling_param",
+        "bit_per_offsets_param")
 
 
 def _port_cfg():
@@ -84,11 +103,17 @@ def _payload(jstate):
         "x_bound_max": np.asarray(jstate.x_bound_max)}
 
 
-@pytest.fixture(scope="module", params=[False, True],
-                ids=["no_stats", "do_stats"])
+@pytest.fixture(scope="module", params=list(CASES), ids=list(CASES))
 def step_case(request):
-    do_stats = request.param
+    mode_name, do_stats = CASES[request.param]
     jstate, jcfg = tiny_model(seed=6)
+    # a hash table whose signs vary, so the binarised context does
+    jstate = jstate._replace(nets=jstate.nets._replace(
+        hash_table=jnp.asarray(np.random.default_rng(6).uniform(
+            -1.5, 1.5, jstate.nets.hash_table.shape).astype(np.float32))))
+    key = jax.random.PRNGKey(11) if mode_name == "ENTROPY" else None
+    noise = (_jax_pair_noise(key, jcfg, WINDOW_CAP) if key is not None
+             else None)
     jset = settings_for(jcfg, WIDTH)
     jopt = JaxOpt(**OPT)
     gt, flow = _inputs()
@@ -101,8 +126,8 @@ def step_case(request):
     def f(p, m2d):
         st = jstate._replace(anchors=p[0], nets=p[1])
         return loss_fn(st, Z1, Z2, jnp.asarray(gt[0]) / 255.0,
-                       jnp.asarray(gt[1]) / 255.0, jnp.asarray(flow), None,
-                       JMode.FULL_PRECISION, m2d)
+                       jnp.asarray(gt[1]) / 255.0, jnp.asarray(flow), key,
+                       JMode[mode_name], m2d)
 
     params = (jstate.anchors, jstate.nets)
     m2d = jnp.zeros((4, rows, 2)) if do_stats else None
@@ -119,7 +144,8 @@ def step_case(request):
                                [grads[1][i] for i in range(4)],
                                GEOM["scale"], k)
     jax_out = dict(loss=float(loss), grads=g_params, new=new_params,
-                   stats=stats, lrs=lrs)
+                   stats=stats, lrs=lrs,
+                   bits={b: float(getattr(aux["metrics"], b)) for b in BITS})
 
     # the port, on the carried-over state
     state = state_from_numpy(_payload(jstate))
@@ -137,18 +163,20 @@ def step_case(request):
     p_loss, _ = make_pair_loss(cfg, pset, WINDOW_CAP, opt, WIDTH, HEIGHT,
                                GEOM["scale"], GEOM["x_min"], GEOM["y_min"])(
         st, Z1, Z2, gt_t[0].float() / 255.0, gt_t[1].float() / 255.0,
-        flow_t, GenerateMode.FULL_PRECISION, None)
+        flow_t, GenerateMode[mode_name], None, noise=noise)
     p_grads = torch.autograd.grad(p_loss, leaves, allow_unused=True)
     step = make_step_body(cfg, pset, WINDOW_CAP, opt, WIDTH, HEIGHT,
                           GEOM["scale"], GEOM["x_min"], GEOM["y_min"])
     new_state, adam, p_stats, metrics = step(
         state, adam_init((state.anchors, state.nets)),
         init_stats(state.anchors.anchor.shape[0], cfg.n_offsets), p_lrs,
-        Z1, Z2, gt_t[0], gt_t[1], flow_t, GenerateMode.FULL_PRECISION,
-        do_stats)
+        Z1, Z2, gt_t[0], gt_t[1], flow_t, GenerateMode[mode_name],
+        do_stats, noise=noise)
     port_out = dict(loss=float(metrics.loss),
-                    p_loss=float(p_loss.detach()), grads=p_grads, new=(new_state.anchors, new_state.nets),
-                    stats=p_stats, lrs=p_lrs, adam=adam)
+                    p_loss=float(p_loss.detach()), grads=p_grads,
+                    new=(new_state.anchors, new_state.nets),
+                    stats=p_stats, lrs=p_lrs, adam=adam, mode=mode_name,
+                    bits={b: float(getattr(metrics, b)) for b in BITS})
     return do_stats, jax_out, port_out
 
 
@@ -198,7 +226,10 @@ def test_step_gradients_match_jax(step_case):
         if got.shape == ():   # no gradient reached the leaf in the port
             assert not np.any(w), name
             continue
-        np.testing.assert_allclose(got, w, rtol=RTOL, atol=ATOL,
+        atol = ATOL
+        if p["mode"] in ("ENTROPY", "STE_ENTROPY"):
+            atol = max(ATOL, 4e-3 * float(np.abs(w).max()))
+        np.testing.assert_allclose(got, w, rtol=RTOL, atol=atol,
                                    err_msg=name)
         resolved += int(np.abs(w).max() > 10 * ATOL)
     assert resolved >= 10
@@ -230,3 +261,12 @@ def test_step_stats_match_jax(step_case):
     assert (float(ps.offset_denom.sum()) > 0) == do_stats
     if do_stats:
         assert float(ps.offset_gradient_accum.max()) > 0
+
+
+def test_step_bits_per_param_match_jax(step_case):
+    _, j, p = step_case
+    for name in BITS:
+        np.testing.assert_allclose(p["bits"][name], j["bits"][name],
+                                   rtol=1e-5, err_msg=name)
+    rated = j["bits"]["bit_per_param"] > 0
+    assert rated == (p["bits"]["bit_per_param"] > 0)

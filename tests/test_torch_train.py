@@ -1,14 +1,16 @@
 """The port's training loop against the JAX package's: the phase
 controller and learning-rate schedules, ``init_model``'s anchors, the
 frame dataset, the fitter's frame-pair draws, three iterations of
-``GOPFitter.fit`` from a carried-over state, and checkpoints read both
-ways — plus the train CLI with JAX blocked from import.
+``GOPFitter.fit`` from a carried-over state, a fit through all four
+phases with densify epochs (JAX's noise injected), and checkpoints read
+both ways and across device types — plus the train CLI with JAX blocked
+from import.
 
 Integer and host-numpy paths (controller, schedules, voxelisation, 3-NN
-scales, padding, frame-pair draws, rng states) must be equal.  Losses of
-the three iterations agree to rtol 1e-3: the first equals to float
-rounding (tests/test_torch_step.py), later ones follow Adam steps of
-about lr * sign(g), where a near-zero gradient's sign is rounding.
+scales, padding, frame-pair draws, densify decisions, rng states) must be
+equal.  Losses agree to rtol 1e-3: the first equals to float rounding
+(tests/test_torch_step.py), later ones follow Adam steps of about
+lr * sign(g), where a near-zero gradient's sign is rounding.
 """
 
 import dataclasses
@@ -46,7 +48,10 @@ from gsvc_tpu_torch.models.gaussians import (
 from gsvc_tpu_torch.train.controller import TrainingController
 from gsvc_tpu_torch.train.fit import GOPFitter
 from gsvc_tpu_torch.train.schedules import build_schedules
-from gsvc_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from gsvc_tpu_torch.utils.checkpoint import (
+    load_checkpoint, read_checkpoint, save_checkpoint,
+)
+from tests.test_torch_mirror import _jax_pair_noise
 from tests.test_train import synthetic_video
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -64,6 +69,14 @@ SCHEDULE = dict(iterations=3, init_anchor_num=120, optical_lambda=5.0,
                 quantized_training_total=0,
                 entropy_constrained_train_total=0,
                 ste_entropy_constrained_train_total=0)
+# all four phases (4 + 2 + 3 + 2 iterations, then STE_ENTROPY past the
+# schedule's end) with densify epochs at iterations 3, 6 and 9
+FOUR_PHASES = dict(iterations=12, update_from=2, update_interval=3,
+                   update_until=10, full_precision_training_total=4,
+                   quantized_training_total=2,
+                   entropy_constrained_train_total=3,
+                   ste_entropy_constrained_train_total=2,
+                   pause_densification=1, densify_grad_threshold=1e-5)
 
 
 def _configs():
@@ -241,21 +254,94 @@ def test_checkpoints_read_both_ways(fitters, tmp_path):
                                   pf.stats.offset_gradient_accum.numpy())
 
 
-def test_fit_refuses_the_next_slice():
+def test_four_phase_fit_matches_jax(tmp_path, monkeypatch):
+    """Twelve iterations through FULL_PRECISION, QUANTIZED_NOISE, ENTROPY
+    and STE_ENTROPY (and one past the schedule) with three densify epochs
+    (the index-plan path), from a carried-over state: the port takes the
+    uniform draws of JAX's key chain (one split per iteration, then per
+    frame and attribute), so every iteration's loss and bits per
+    parameter follow JAX's and the densify epochs grow and prune the same
+    anchors."""
+    import gsvc_tpu_torch.train.fit as port_fit
+    from gsvc_tpu_torch.models.gaussians import GenerateMode
+
+    jcfg, pcfg = _configs()
+    for c in (jcfg, pcfg):
+        for k, v in FOUR_PHASES.items():
+            setattr(c.optimization, k, v)
+    frames = _video_u8()
+    jf = JaxFitter(jcfg, JaxDataset(images=frames.astype(np.float32)
+                                    / 255.0), seed=0)
+    pf = GOPFitter(pcfg, FrameCubeDataset(images=frames), seed=0,
+                   device="cpu")
+    jax_save_ckpt(str(tmp_path / "jax.pkl"), jf, 0)
+    load_checkpoint(str(tmp_path / "jax.pkl"), pf)
+
+    key = [jf.key]
+    make_step = port_fit.make_step_body
+
+    def with_jax_noise(cfg, settings, window_cap, *args, **kw):
+        body = make_step(cfg, settings, window_cap, *args, **kw)
+
+        def step(*a, mode, do_stats, generator=None, noise=None,
+                 timer=None):
+            key[0], sk = jax.random.split(key[0])
+            if mode in (GenerateMode.QUANTIZED_NOISE, GenerateMode.ENTROPY):
+                noise = _jax_pair_noise(sk, cfg, window_cap)
+            return body(*a, mode=mode, do_stats=do_stats, noise=noise,
+                        timer=timer)
+        return step
+
+    monkeypatch.setattr(port_fit, "make_step_body", with_jax_noise)
+    pf._build_step()
+    jr = jf.fit(log_every=1)
+    pr = pf.fit(log_every=1)
+    assert [h["iter"] for h in pr.history] == list(range(1, 13))
+    np.testing.assert_allclose([h["loss"] for h in pr.history],
+                               [h["loss"] for h in jr.history], rtol=1e-3)
+    # the bits count quantised symbols: once Adam steps differ in the
+    # sign of near-zero gradients, a value at a rounding edge of
+    # round(x / q) moves a symbol and its bits (the first entropy
+    # iteration agrees to 1e-6, the last to 3e-3)
+    np.testing.assert_allclose([h["bpp"] for h in pr.history],
+                               [h["bpp"] for h in jr.history], rtol=5e-3)
+    counts = [h["n_active"] for h in pr.history]
+    assert counts == [h["n_active"] for h in jr.history]
+    assert counts[2] > counts[1]                 # the first epoch grew
+    assert [h["bpp"] > 0 for h in pr.history] == [False] * 6 + [True] * 6
+    assert jf.rng.bit_generator.state == pf.rng.bit_generator.state
+    assert (pf.capacity, pf.window_cap) == (jf.capacity, jf.window_cap)
+    assert pf.adam.step == int(jf.adam.step) == 12
+
+
+def test_checkpoint_from_another_device_type_loads(fitters, tmp_path):
+    """A checkpoint whose noise-generator state is a CUDA generator's (16
+    bytes, no device type recorded, as written on the card before the
+    device type was stored) loads into a CPU fitter: the model state
+    restores and the generator is reseeded from (seed, iteration)."""
+    _, pf, _ = fitters
+    path = tmp_path / "card.pkl"
+    save_checkpoint(str(path), pf, 3)
+    assert read_checkpoint(str(path))["torch_generator_device"] == "cpu"
+    import pickle
+    p = read_checkpoint(str(path))
+    p["torch_generator"] = np.arange(16, dtype=np.uint8)
+    del p["torch_generator_device"]
+    with open(path, "wb") as f:
+        pickle.dump(p, f)
     _, pcfg = _configs()
-    pcfg.optimization.update_from = 1
-    pcfg.optimization.update_interval = 2
-    f = GOPFitter(pcfg, FrameCubeDataset(images=_video_u8()), seed=0,
-                  device="cpu")
-    with pytest.raises(NotImplementedError, match="densify"):
-        f.fit(iterations=3, log_every=0)
-    _, pcfg = _configs()
-    pcfg.optimization.full_precision_training_total = 1
-    pcfg.optimization.entropy_constrained_train_total = 5
-    f = GOPFitter(pcfg, FrameCubeDataset(images=_video_u8()), seed=0,
-                  device="cpu")
-    with pytest.raises(NotImplementedError, match="ENTROPY"):
-        f.fit(iterations=3, log_every=0)
+    logs = []
+    fresh = GOPFitter(pcfg, FrameCubeDataset(images=_video_u8()), seed=5,
+                      device="cpu", log_fn=logs.append)
+    assert load_checkpoint(str(path), fresh) == 3
+    assert any("reseeded" in m for m in logs)
+    for name, got in fresh.state.anchors._asdict().items():
+        assert torch.equal(got, getattr(pf.state.anchors, name)), name
+    again = GOPFitter(pcfg, FrameCubeDataset(images=_video_u8()), seed=9,
+                      device="cpu")
+    load_checkpoint(str(path), again)
+    assert torch.equal(again.generator.get_state(),
+                       fresh.generator.get_state())
 
 
 _BLOCKED_FIT = r"""
@@ -291,10 +377,15 @@ def test_cli_fits_on_cpu_with_jax_blocked(tmp_path):
         Image.fromarray(fr).save(src / f"f_{i:03d}.png")
     cfg = tmp_path / "small.yaml"
     _, pcfg = _configs()
-    pcfg.optimization.iterations = 4
+    # all four phases with a densify epoch at iteration 4
+    pcfg.optimization.iterations = 6
     pcfg.optimization.full_precision_training_total = 2
-    pcfg.optimization.quantized_training_total = 2
+    pcfg.optimization.quantized_training_total = 1
+    pcfg.optimization.entropy_constrained_train_total = 2
+    pcfg.optimization.ste_entropy_constrained_train_total = 1
     pcfg.optimization.pause_densification = 1
+    pcfg.optimization.update_from = 1
+    pcfg.optimization.update_interval = 4
     from gsvc_tpu_torch.config import save_config
     save_config(pcfg, str(cfg))
     out = tmp_path / "out"
@@ -308,7 +399,7 @@ def test_cli_fits_on_cpu_with_jax_blocked(tmp_path):
     import json
     got = json.loads(res.stdout.strip().splitlines()[-1])
     assert got["bad"] == [] and got["modules"] >= 30
-    assert got["res"]["iterations"] == 4 and np.isfinite(
+    assert got["res"]["iterations"] == 6 and np.isfinite(
         got["res"]["fit_psnr"])
     assert (out / "chkpnt_final.pkl").exists()
     assert (out / "chkpnt2.pkl").exists()
