@@ -21,34 +21,36 @@
    after; then holds each frame's kernel composite against the plain
    version and times both.
 5. Training phase: the 600 frames the port decodes from that bitstream
-   become the ground truth (uint8 on the card); ``GOPFitter.fit`` runs 36
+   become the ground truth (uint8 on the card); ``GOPFitter.fit`` runs 40
    steps of the fixture's model and pipeline
    (artifacts/rd_r5/realtex_0.004/cfg_args.yaml: 1920x1080, 100k initial
    anchors, 50-dim features, 10 offsets, 8x128 tiles, the 12 + 4 level
-   hash grid with 8 features) with only the schedule overlaid — 12
-   FULL_PRECISION, 8 QUANTIZED_NOISE, 8 ENTROPY and 8 STE_ENTROPY steps,
+   hash grid with 8 features) with only the schedule overlaid — 24
+   FULL_PRECISION, 4 QUANTIZED_NOISE, 6 ENTROPY and 6 STE_ENTROPY steps,
    statistics from step 3 on, densify epochs (the index-plan path) at
-   steps 6 (FULL_PRECISION), 18, 24 and 30; the fit's eval hook scores
-   all 600 frames after steps 12, 24 and 36 (the last two with STE
-   rounding, through B3f), and the
-   whole-model rate estimate runs after step 36.  The launch counts are
-   reset just before and read just after: B1 and B2 must launch once per
-   step, B3f/B3b once per entropy step (one union-window context query
-   per frame pair) and in no other step, and B3f once per frame of the
-   entropy-mode evaluations and once in the estimate.  Every loss must be
-   finite and the bits per parameter finite and positive in the entropy
-   phases; the mean PSNR of the 600 frames (FULL_PRECISION renders) after
-   the 12 FULL_PRECISION steps must be above the PSNR before step 1; and
-   the checkpoint written at step 36 must load into a fresh fitter.  (The
-   training loss itself does not fall in 12 steps: at step 1 the
+   steps 6, 12, 18 (FULL_PRECISION), 30 and 36; the fit's eval hook
+   scores all 600 frames every 8 steps (after steps 32 and 40 with STE
+   rounding, through B3f), and the whole-model rate estimate runs after
+   step 40.  The launch counts are reset just before and read just
+   after: B1 and B2 must launch once per step, B3f/B3b once per entropy
+   step (one union-window context query per frame pair) and in no other
+   step, and B3f once per frame of the entropy-mode evaluations and once
+   in the estimate.  Every loss must be finite and the bits per
+   parameter finite and positive in the entropy phases; the mean PSNR of
+   the 600 frames (FULL_PRECISION renders) after the 24 FULL_PRECISION
+   steps must be MIN_FP_RISE above the PSNR before step 1; and the
+   checkpoint written at step 40 must load into a fresh fitter.  (The
+   training loss itself does not fall in a few steps: at step 1 the
    optical-flow term is ~0 — the time-conditioned offsets barely differ
    between neighbouring frames at the initial weights — and it grows as
    soon as the deform MLP takes its first Adam steps, in the JAX package
-   as in the port.)  Prints each step's loss terms and time split (CUDA
-   events), each densify epoch's milliseconds with the anchor count and
-   capacity before and after, the per-phase median step, the estimated
-   bits, and times B1/B2 and their plain versions on one training pair's
-   inputs against their bounds.
+   as in the port.  The PSNR falls again in the entropy phases: the rate
+   term drives the quantisation steps up, and with ``lmbda`` 0 it keeps
+   rising, --fit-study.)  Prints each step's loss terms and time split
+   (CUDA events), each densify epoch's milliseconds with the anchor
+   count and capacity before and after, the per-phase median step, the
+   estimated bits, and times B1/B2 and their plain versions on one
+   training pair's inputs against their bounds.
 6. Hash-grid phase: kernels B3f/B3b (``hashgrid_forward`` /
    ``hashgrid_backward``) against their plain versions on the fitted
    state's STE-binarised table, at (a) the union window of the frame pair
@@ -59,6 +61,13 @@
 Any failed check raises, so the run exits non-zero and prints no result.
 Frames are written nowhere; the checkpoint goes to a temporary directory.
 Without a CUDA device the script exits 1.
+
+    python3 chip_smoke.py --fit-study
+
+fits the training phase's model under the schedule variants of FIT_STUDY
+(seeds, with and without the densify epoch, longer FULL_PRECISION,
+``lmbda`` 0) and prints the mean PSNR of the 600 frames every 6 steps,
+one JSON line per fit.
 """
 
 from __future__ import annotations
@@ -78,11 +87,16 @@ FIXTURE_DIR = pathlib.Path(__file__).resolve().parent / "artifacts" \
 FIXTURE = str(FIXTURE_DIR / "bitstreams")
 N_FRAMES = 8
 # the training run: the fixture's config with only the schedule overlaid
-# (12 + 8 + 8 + 8 steps; densify epochs at steps 6, 18, 24 and 30)
-PHASES = (("FULL_PRECISION", 12), ("QUANTIZED_NOISE", 8), ("ENTROPY", 8),
-          ("STE_ENTROPY", 8))
+# (24 + 4 + 6 + 6 steps; densify epochs every 6 steps from step 6)
+PHASES = (("FULL_PRECISION", 24), ("QUANTIZED_NOISE", 4), ("ENTROPY", 6),
+          ("STE_ENTROPY", 6))
 TRAIN_STEPS = sum(n for _, n in PHASES)
-EVAL_EVERY = 12
+EVAL_EVERY = 8
+# the mean PSNR of the 600 frames must rise by this much (dB) over the
+# FULL_PRECISION steps.  Which frame pairs a short fit draws moves the
+# 600-frame mean: 12 steps rose by -0.26 to +0.61 dB over three seeds
+# with and without an epoch (--fit-study), so the stretch is 24 steps.
+MIN_FP_RISE = 0.5
 SCHEDULE = {"optimization.iterations": TRAIN_STEPS,
             "optimization.full_precision_training_total": PHASES[0][1],
             "optimization.quantized_training_total": PHASES[1][1],
@@ -665,9 +679,11 @@ def training_phase(dec, bidir, mirror, hk):
         f"step 1 {psnr0:.4f} dB, then " + ", ".join(
             f"after step {it} ({phase_of(it)}) {v:.4f} dB"
             for it, v in evals.items()))
-    if not evals[12] > psnr0:
+    fp_end = PHASES[0][1]
+    if not evals[fp_end] > psnr0 + MIN_FP_RISE:
         raise AssertionError(f"the FULL_PRECISION steps did not improve the "
-                             f"fit: PSNR {psnr0} before, {evals[12]} after")
+                             f"fit by {MIN_FP_RISE} dB: PSNR {psnr0} before, "
+                             f"{evals[fp_end]} after step {fp_end}")
 
     split = fitter.timer.split()
     log("training phase: step ms (CUDA events) " + ", ".join(
@@ -742,6 +758,27 @@ def hash_flops(spec, n: int, backward: bool) -> int:
     return n * total
 
 
+def touched_rows(spec, x) -> int:
+    """Distinct table rows that the encode of ``x`` needs: the corners of
+    nonzero weight of every (query, level-instance).  Border corners and
+    rows no query reaches are never read."""
+    from gsvc_tpu_torch.ops.hashgrid import _level_indices
+
+    s = spec.param_splits()
+    rows = []
+    for base, grid, cols in ((s[0], spec.grid_3d, [0, 1, 2]),
+                             (s[1], spec.grid_2d, [0, 1]),
+                             (s[2], spec.grid_2d, [0, 2]),
+                             (s[3], spec.grid_2d, [1, 2])):
+        xs = x[:, cols]
+        for lvl in range(grid.n_levels):
+            idx, w = _level_indices(xs, grid.resolutions[lvl],
+                                    grid.level_sizes[lvl],
+                                    grid.level_offsets[lvl], grid.num_dim)
+            rows.append(torch.unique(idx[w != 0]) + base)
+    return int(torch.unique(torch.cat(rows)).numel())
+
+
 def hashgrid_check(hk, spec, table, x, label):
     """B3f/B3b against their plain versions on one input, timed."""
     out_k = hk.hashgrid_fwd_cuda(table, x, spec)
@@ -772,11 +809,17 @@ def hashgrid_check(hk, spec, table, x, label):
     b_ms = cuda_ms(lambda: hk.hashgrid_bwd_cuda(table, x, g, spec), 20)
     f_plain = cuda_ms(lambda: hk.hashgrid_fwd_plain(table, x, spec), 3)
     b_plain = cuda_ms(lambda: hk.hashgrid_bwd_plain(table, x, g, spec), 3)
+    # bytes: the table rows the queries need (read once), x, the
+    # cotangent, the outputs; B3b's table gradient is a dense output
     n = x.shape[0]
-    fb = bound_ms(nbytes(table, x, out_k), hash_flops(spec, n, False))
-    bb = bound_ms(nbytes(table, x, g, gt_k, gx_k), hash_flops(spec, n, True))
+    rows = touched_rows(spec, x)
+    row_bytes = rows * spec.n_features * 4
+    fb = bound_ms(row_bytes + nbytes(x, out_k), hash_flops(spec, n, False))
+    bb = bound_ms(row_bytes + nbytes(x, g, gt_k, gx_k),
+                  hash_flops(spec, n, True))
     log(f"{label}: N={n} queries x {hk.instance_table(spec).shape[0]} "
-        f"instances; B3f max |kernel - plain| {f_err:.3e} (limit "
+        f"instances, {rows} of {spec.total_rows} table rows needed "
+        f"({row_bytes / 1e6:.2f} MB); B3f max |kernel - plain| {f_err:.3e} (limit "
         f"{MAX_HASH_FWD_ERR:.0e}), kernel {f_ms:.4f} ms, plain "
         f"{f_plain:.3f} ms, bound {fb[0]:.4f} ms ({fb[1]}); B3b max |kernel "
         f"- plain| {b_abs:.3e} = {b_rel:.3e} of the largest gradient (limit "
@@ -816,6 +859,87 @@ def hashgrid_phase(hk, fitter):
     full = hashgrid_check(hk, spec, table, x_all,
                           "hash-grid phase (whole capacity)")
     return win, full
+
+
+# python3 chip_smoke.py --fit-study [index ...]: name, seed, fit steps,
+# eval every, overrides on STUDY_SCHEDULE, keep the frame draws of a run
+# without epochs (the epoch's random draws are undone).  STUDY_SCHEDULE
+# is the training phase's schedule before it was widened: 12 + 8 + 8 + 8
+# steps, densify epochs at steps 6, 18, 24 and 30.
+STUDY_SCHEDULE = {**SCHEDULE, "optimization.iterations": 36,
+                  "optimization.full_precision_training_total": 12,
+                  "optimization.quantized_training_total": 8,
+                  "optimization.entropy_constrained_train_total": 8,
+                  "optimization.ste_entropy_constrained_train_total": 8,
+                  "optimization.update_until": 36}
+NO_EPOCH = {"optimization.update_from": 600}
+FP24 = {"optimization.full_precision_training_total": 24}
+FIT_STUDY = (
+    ("smoke schedule (epoch at step 6)", 0, 12, 6, {}, False),
+    ("no epoch in 12 steps", 0, 12, 6, NO_EPOCH, False),
+    ("epoch at step 6, frame draws kept", 0, 12, 6, {}, True),
+    ("smoke schedule, seed 1", 1, 12, 6, {}, False),
+    ("no epoch, seed 1", 1, 12, 6, NO_EPOCH, False),
+    ("smoke schedule, seed 2", 2, 12, 6, {}, False),
+    ("no epoch, seed 2", 2, 12, 6, NO_EPOCH, False),
+    ("24 FULL_PRECISION steps", 0, 24, 6, FP24, False),
+    ("four phases, 36 steps", 0, 36, 6, {}, False),
+    ("four phases, lmbda 0", 0, 36, 6, {"optimization.lmbda": 0.0}, False),
+    ("four phases, no epoch after step 12", 0, 36, 6,
+     {"optimization.update_until": 12}, False),
+    ("24 FULL_PRECISION steps, seed 1", 1, 24, 8, FP24, False),
+    ("24 FULL_PRECISION steps, seed 2", 2, 24, 8, FP24, False),
+    ("24 FULL_PRECISION steps, seed 3", 3, 24, 8, FP24, False),
+)
+
+
+def fit_study(which):
+    """Fits of the training phase's model on the decoded frames under the
+    schedule variants ``which`` (indices into FIT_STUDY): the mean PSNR of
+    the 600 frames before step 1 and every few steps, and the anchor
+    count at the end."""
+    from gsvc_tpu_torch import build
+    from gsvc_tpu_torch.cli.decode import decode_bitstream
+    from gsvc_tpu_torch.config import load_config
+    from gsvc_tpu_torch.framecube.frame import FrameCubeDataset
+    from gsvc_tpu_torch.train.fit import GOPFitter
+
+    build.build()
+    frames = decoded_ground_truth(decode_bitstream(FIXTURE, device="cuda"))
+    dataset = FrameCubeDataset(images=frames)
+    for i in which:
+        name, seed, steps, every, over, keep_draws = FIT_STUDY[i]
+        t0 = time.perf_counter()
+        cfg = load_config(str(FIXTURE_DIR / "cfg_args.yaml"),
+                          overrides={**STUDY_SCHEDULE, **over})
+        cfg.pipeline.source_path = cfg.pipeline.optical_path = ""
+        cfg.pipeline.model_path = ""
+        fitter = GOPFitter(cfg, dataset, seed=seed, device="cuda",
+                           log_fn=lambda m: None)
+        epochs = []
+        run = fitter._densify
+
+        def epoch(fitter=fitter, run=run, epochs=epochs,
+                  keep_draws=keep_draws):
+            state = fitter.rng.bit_generator.state
+            res = run()
+            if keep_draws:
+                fitter.rng.bit_generator.state = state
+            epochs.append((fitter.controller.current_iteration,
+                           res.n_grown, res.n_pruned))
+            return res
+
+        fitter._densify = epoch
+        psnr0 = fitter.evaluate()["psnr"]
+        report = fitter.fit(iterations=steps, log_every=1, eval_every=every)
+        row = dict(index=i, name=name, seed=seed, psnr0=psnr0,
+                   evals={e["iter"]: e["psnr"] for e in report.evals},
+                   epochs=epochs, n_active=fitter.state.n_active,
+                   bpp_last=report.history[-1]["bpp"],
+                   seconds=time.perf_counter() - t0)
+        log("fit study: " + json.dumps(row))
+        del fitter
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -930,4 +1054,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--fit-study"]:
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device available")
+        fit_study([int(a) for a in sys.argv[2:]]
+                  or range(len(FIT_STUDY)))
+        sys.exit(0)
     sys.exit(main())

@@ -41,20 +41,15 @@ template <int F>
 __device__ __forceinline__ void add_row(float* __restrict__ g_table, int row,
                                         const float* v) {
   float* p = g_table + static_cast<size_t>(row) * F;
-#if defined(__CUDA_ARCH__) && (__CUDA_ARCH__ >= 900) && (CUDART_VERSION >= 12010)
   if constexpr (F % 4 == 0) {
 #pragma unroll
-    for (int f = 0; f < F; f += 4)
+    for (int f = 0; f < F; f += 4)  // float4 atomicAdd: sm_90, CUDA >= 12.1
       atomicAdd(reinterpret_cast<float4*>(p + f),
                 make_float4(v[f], v[f + 1], v[f + 2], v[f + 3]));
   } else {
 #pragma unroll
     for (int f = 0; f < F; ++f) atomicAdd(p + f, v[f]);
   }
-#else
-#pragma unroll
-  for (int f = 0; f < F; ++f) atomicAdd(p + f, v[f]);
-#endif
 }
 
 template <int F, int D>
@@ -146,8 +141,8 @@ __global__ void hashgrid_bwd_kernel(const float* __restrict__ table,
 // Launches ceil(n / 128) x n_inst blocks of 128 threads on `stream`.  Pointers are
 // device pointers: table [rows, f] f32, x [n, 3] f32, g_out [n, n_inst * f] f32,
 // meta [n_inst, 8] i32 (see hashgrid.cuh Inst), g_table [rows, f] f32 (zeroed by the
-// caller, 16-byte aligned when f % 4 == 0), gx_part [n_inst, n, 3] f32.  f is 1, 2, 4,
-// 8 or 16.  Returns cudaGetLastError() after the launch (0 on success).
+// caller, 16-byte aligned when f % 4 == 0), gx_part [n_inst, n, 3] f32.  f is 2, 4 or
+// 8.  Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int hashgrid_backward(const float* table, const float* x, const float* g_out,
                                  const int* meta, float* g_table, float* gx_part, int n,
                                  int n_inst, int f, void* stream) {
@@ -160,11 +155,9 @@ extern "C" int hashgrid_backward(const float* table, const float* x, const float
   hashgrid_bwd_kernel<FF><<<grid, kThreads, 0, st>>>(table, x, g_out, meta, g_table, \
                                                      gx_part, n, n_inst)
   switch (f) {
-    case 1: GSVC_HASH_BWD_LAUNCH(1); break;
     case 2: GSVC_HASH_BWD_LAUNCH(2); break;
     case 4: GSVC_HASH_BWD_LAUNCH(4); break;
     case 8: GSVC_HASH_BWD_LAUNCH(8); break;
-    case 16: GSVC_HASH_BWD_LAUNCH(16); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef GSVC_HASH_BWD_LAUNCH

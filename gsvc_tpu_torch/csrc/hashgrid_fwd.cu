@@ -111,7 +111,7 @@ __global__ void hashgrid_fwd_kernel(const float* __restrict__ table,
 // Launches ceil(n / 256) x n_inst blocks of 256 threads on `stream`.  Pointers are
 // device pointers: table [rows, f] f32 (16-byte aligned when f % 4 == 0), x [n, 3]
 // f32, meta [n_inst, 8] i32 (res, size, offset, ndim, dims[3], use_hash), out
-// [n, n_inst * f] f32.  f is 1, 2, 4, 8 or 16.  Returns cudaGetLastError() after the
+// [n, n_inst * f] f32.  f is 2, 4 or 8.  Returns cudaGetLastError() after the
 // launch (0 on success).
 extern "C" int hashgrid_forward(const float* table, const float* x, const int* meta,
                                 float* out, int n, int n_inst, int f, void* stream) {
@@ -123,11 +123,9 @@ extern "C" int hashgrid_forward(const float* table, const float* x, const int* m
 #define GSVC_HASH_FWD_LAUNCH(FF) \
   hashgrid_fwd_kernel<FF><<<grid, kThreads, 0, st>>>(table, x, meta, out, n, n_inst)
   switch (f) {
-    case 1: GSVC_HASH_FWD_LAUNCH(1); break;
     case 2: GSVC_HASH_FWD_LAUNCH(2); break;
     case 4: GSVC_HASH_FWD_LAUNCH(4); break;
     case 8: GSVC_HASH_FWD_LAUNCH(8); break;
-    case 16: GSVC_HASH_FWD_LAUNCH(16); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef GSVC_HASH_FWD_LAUNCH

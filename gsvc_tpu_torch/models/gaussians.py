@@ -38,7 +38,7 @@ from gsvc_tpu_torch.models.mlps import (
 from gsvc_tpu_torch.ops.embed import positional_embedder
 from gsvc_tpu_torch.ops.entropy import gaussian_bits
 from gsvc_tpu_torch.ops.hashgrid import (
-    MixGridSpec, init_mix_grid_params, make_mix_grid_spec, mix_grid_encode,
+    MixGridSpec, init_mix_grid_params, make_mix_grid_spec,
 )
 from gsvc_tpu_torch.ops.hashgrid_kernels import mix_grid_encode_kernel
 from gsvc_tpu_torch.ops.quant import (
@@ -49,6 +49,8 @@ from gsvc_tpu_torch.ops.quant import (
 Q_FEAT = 1.0
 Q_SCALING = 0.001
 Q_OFFSETS = 0.2
+# the JAX package's hash-encode backends (``ModelConfig.hash_backend``)
+HASH_BACKENDS = ("auto", "xla", "lanegather")
 
 
 class GenerateMode(enum.IntEnum):
@@ -390,18 +392,15 @@ def get_anchor(state: ModelState, decoded: bool = False):
 def calc_interp_feat(state: ModelState, cfg: GaussianConfig, x,
                      decoded: bool = False, timer=None):
     """Normalise ``x`` by the learned bounds and encode it through the mix
-    grid (the table STE-binarised in training).  ``hash_backend`` "auto"
-    and "lanegather" take kernels B3f/B3b on CUDA tensors and their plain
-    version on CPU tensors; "xla" asks for the plain version."""
+    grid (the table STE-binarised in training): kernels B3f/B3b on CUDA
+    tensors, their plain version on CPU tensors.  ``hash_backend`` names
+    the JAX package's backend; every known value takes this one route."""
+    if cfg.hash_backend not in HASH_BACKENDS:
+        raise ValueError(f"unknown hash_backend {cfg.hash_backend!r}")
     xn = (x - state.x_bound_min) / (state.x_bound_max - state.x_bound_min)
     binarize = ste_binary if cfg.ste_binary and not decoded else None
-    if cfg.hash_backend in ("auto", "lanegather"):
-        return mix_grid_encode_kernel(state.nets.hash_table, xn, cfg.grid,
-                                      binarize=binarize, timer=timer)
-    if cfg.hash_backend == "xla":
-        return mix_grid_encode(state.nets.hash_table, xn, cfg.grid,
-                               binarize=binarize)
-    raise ValueError(f"unknown hash_backend {cfg.hash_backend!r}")
+    return mix_grid_encode_kernel(state.nets.hash_table, xn, cfg.grid,
+                                  binarize=binarize, timer=timer)
 
 
 def calc_entropy_context(state: ModelState, cfg: GaussianConfig, anchor,

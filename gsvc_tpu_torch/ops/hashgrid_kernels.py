@@ -34,10 +34,9 @@ import torch
 from gsvc_tpu_torch.build import load
 from gsvc_tpu_torch.ops.hashgrid import MixGridSpec, mix_grid_encode
 
-_FEATURES = (1, 2, 4, 8, 16)
+_FEATURES = (2, 4, 8)
 
 
-@functools.lru_cache(maxsize=16)
 def instance_table(spec: MixGridSpec) -> np.ndarray:
     """int32 [n_inst, 8]: (res, size, first row, ndim, dims[3], use_hash)
     per level-instance, in ``mix_grid_encode``'s column order."""
@@ -56,22 +55,14 @@ def instance_table(spec: MixGridSpec) -> np.ndarray:
     return np.asarray(rows, np.int32)
 
 
-_meta_cache = {}
-
-
-def _meta(spec: MixGridSpec, device) -> torch.Tensor:
-    key = (spec, str(device))
-    t = _meta_cache.get(key)
-    if t is None:
-        t = torch.from_numpy(instance_table(spec)).to(device)
-        _meta_cache[key] = t
-    return t
+@functools.lru_cache(maxsize=16)
+def _meta(spec: MixGridSpec, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(instance_table(spec)).to(device)
 
 
 def _check(table, x, spec: MixGridSpec):
-    if table.dtype != torch.float32 or x.dtype != torch.float32:
-        raise ValueError(f"the hash-grid encode takes float32, got table "
-                         f"{table.dtype}, x {x.dtype}")
+    if table.dtype != x.dtype:
+        raise ValueError(f"table {table.dtype}, x {x.dtype}")
     if tuple(table.shape) != (spec.total_rows, spec.n_features):
         raise ValueError(f"table: expected {(spec.total_rows, spec.n_features)}"
                          f", got {tuple(table.shape)}")
@@ -98,6 +89,8 @@ def _cuda_inputs(table, x, spec):
     _check(table, x, spec)
     if not (table.is_cuda and x.is_cuda):
         raise ValueError("the hash-grid kernels take CUDA tensors")
+    if x.dtype != torch.float32:
+        raise ValueError(f"the hash-grid kernels take float32, got {x.dtype}")
     if spec.n_features not in _FEATURES:
         raise ValueError(f"the hash-grid kernels take F in {_FEATURES}, got "
                          f"{spec.n_features}")

@@ -16,6 +16,8 @@ to rtol 1e-5 / atol 1e-6 (it feeds float32 MLPs with hash features);
 estimated bits to rtol 1e-5 (sums of ~10^4 terms).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -231,6 +233,24 @@ def test_entropy_context_matches_jax(decoded):
                                    rtol=RTOL, atol=1e-6, err_msg=name)
 
 
+@pytest.mark.parametrize("backend", ["xla", "lanegather", "bogus"])
+def test_hash_backend_routes_by_device(backend):
+    """``hash_backend`` does not pick the route: every known value gives
+    the "auto" context (the plain encode on CPU tensors), and an unknown
+    one raises."""
+    _, _, state, cfg = _carried_state()
+    other = dataclasses.replace(cfg, hash_backend=backend)
+    anchor = get_anchor(state)
+    if backend == "bogus":
+        with pytest.raises(ValueError, match="hash_backend"):
+            calc_entropy_context(state, other, anchor)
+        return
+    want = calc_entropy_context(state, cfg, anchor)
+    got = calc_entropy_context(state, other, anchor)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 def test_estimate_final_bits_matches_jax():
     jstate, jcfg, state, cfg = _carried_state()
     want = jax_estimate(jstate, jcfg)
@@ -304,10 +324,7 @@ def test_rate_gradients_against_float64(mode):
             nets=tree_map(lambda t: t.to(dtype), state.nets),
             x_bound_min=state.x_bound_min.to(dtype),
             x_bound_max=state.x_bound_max.to(dtype))
-        # the float64 run takes the plain encode (the kernels' wrapper is
-        # float32 only)
-        c = cfg if dtype == torch.float32 else GaussianConfig(
-            **{**cfg.__dict__, "hash_backend": "xla"})
+        c = cfg
         s, w = window_for_frame(state, c, Z1, WINDOW_CAP)
         assert s == int(start)
         a = state.anchors.anchor.clone().requires_grad_(True)

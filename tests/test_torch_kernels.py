@@ -273,20 +273,12 @@ def test_hashgrid_autograd_through_kernels():
     assert float(grads[0][0][table.abs() > 1].abs().max()) == 0.0
 
 
-@pytest.mark.cuda
-def test_seed_gives_the_same_networks_on_cpu_and_card():
-    """GOPFitter(seed, "cuda") and GOPFitter(seed, "cpu") start from
-    equal hash tables and MLP weights (drawn on the CPU, then moved)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
+def _tiny_fit_config():
     from gsvc_tpu_torch.config import (
         Config, ModelConfig, OptimizationConfig, PipelineConfig,
     )
-    from gsvc_tpu_torch.framecube.frame import FrameCubeDataset
-    from gsvc_tpu_torch.train.fit import GOPFitter
-    from gsvc_tpu_torch.train.optim import tree_leaves
 
-    cfg = Config(
+    return Config(
         model=ModelConfig(anchor_feature_dim=8, n_offsets=4, threshold=0.3,
                           time_multi_res=4, offset_multi_res=4, log2=6,
                           log2_2D=7, grid_feature_dim=2,
@@ -295,8 +287,53 @@ def test_seed_gives_the_same_networks_on_cpu_and_card():
         pipeline=PipelineConfig(tile_h=8, tile_w=16, visible_capacity=256,
                                 gaussian_chunk=32),
         optimization=OptimizationConfig(init_anchor_num=120))
-    frames = np.random.default_rng(0).integers(0, 256, (3, 24, 32, 3),
-                                               dtype=np.uint8)
+
+
+def _tiny_frames():
+    return np.random.default_rng(0).integers(0, 256, (3, 24, 32, 3),
+                                             dtype=np.uint8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["auto", "xla", "lanegather"])
+def test_every_hash_backend_takes_the_kernels(backend):
+    """On the card the entropy context runs B3f and its gradient B3b
+    whatever ``hash_backend`` says."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from gsvc_tpu_torch.framecube.frame import FrameCubeDataset
+    from gsvc_tpu_torch.models.gaussians import (
+        calc_entropy_context, get_anchor,
+    )
+    from gsvc_tpu_torch.train.fit import GOPFitter
+
+    fitter = GOPFitter(_tiny_fit_config(),
+                       FrameCubeDataset(images=_tiny_frames()), seed=5,
+                       device="cuda")
+    cfg = dataclasses.replace(fitter.gcfg, hash_backend=backend)
+    anchor = get_anchor(fitter.state).detach().requires_grad_(True)
+    f0, b0 = hk.hashgrid_forward.launches, hk.hashgrid_backward.launches
+    ec = calc_entropy_context(fitter.state, cfg, anchor)
+    ec.mean_feat.sum().backward()
+    torch.cuda.synchronize()
+    assert hk.hashgrid_forward.launches == f0 + 1
+    assert hk.hashgrid_backward.launches == b0 + 1
+    assert torch.isfinite(anchor.grad).all()
+
+
+@pytest.mark.cuda
+def test_seed_gives_the_same_networks_on_cpu_and_card():
+    """GOPFitter(seed, "cuda") and GOPFitter(seed, "cpu") start from
+    equal hash tables and MLP weights (drawn on the CPU, then moved)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from gsvc_tpu_torch.framecube.frame import FrameCubeDataset
+    from gsvc_tpu_torch.train.fit import GOPFitter
+    from gsvc_tpu_torch.train.optim import tree_leaves
+
+    cfg, frames = _tiny_fit_config(), _tiny_frames()
     nets = [GOPFitter(cfg, FrameCubeDataset(images=frames), seed=7,
                       device=dev).state.nets for dev in ("cuda", "cpu")]
     leaves = [tree_leaves(n) for n in nets]
