@@ -56,7 +56,34 @@
    state's STE-binarised table, at (a) the union window of the frame pair
    299-300 (the inputs of a training step's context query) and (b) the
    whole anchor capacity (the estimate's query), timed with their bounds.
-7. Prints the kernel table as one JSON line, then the result line.
+7. Tile-kernel phase (run right after step 3's kernels): kernels B5f/B5b
+   (``tile_forward`` / ``tile_backward``, the single-view composite that
+   serves frame widths that are not a multiple of tile_w) against their
+   plain versions at the 1080p training shapes (V=4 views of T=2025
+   8x128 tiles, cap 1024, chunk 128; the synthetic tiles of step 3), with
+   and without checkpoints, and the plane gradients of both pushed
+   through the gather's transpose with and without per-view means2d.
+8. Codec phase: the training phase's fitted state through
+   ``conduct_encoding`` -> ``save_streams`` -> ``load_streams`` ->
+   ``conduct_decoding`` -> ``evaluate_video`` over all 600 frames (B4 once
+   per frame and no other composite); the decoded hash signs must equal
+   the STE-binarised table, the decoded masks their encoded count, and
+   the decoded anchors the encoder's quantized anchors.  Prints the
+   encode and decode seconds, the size, bpp, the rate estimate and the
+   decoded PSNR beside the fitter's STE evaluation of the state before
+   the encode (none of them gated).
+9. Narrow-width phase: the 600 frames resized on the card to 854x480
+   (DAVIS 2017 480p; 854 is not a multiple of 128) as PNGs, then
+   ``gsvc_tpu_torch.cli.train.main`` without --skip_codec on them with
+   the fixture's cfg_args.yaml and a 12-step four-phase schedule
+   overlaid (densify epochs from step 4): fit, estimate, encode, save,
+   decode, evaluate.  The launch counts are reset just before main and
+   read just after: B5f and B5b once per step, B5f once per frame of the
+   fitter's evaluation and of the decoded one, B1, B2 and B4 never; the
+   losses must be finite, and results.json must hold bpp > 0 and a finite
+   decoded PSNR.  Then B5f/B5b against their plain versions on the
+   fitted state's pair 299-300 (its four views' planes), timed.
+10. Prints the kernel table as one JSON line, then the result line.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 Frames are written nowhere; the checkpoint goes to a temporary directory.
@@ -455,9 +482,11 @@ def decoded_ground_truth(dec):
 class StepTimer:
     """CUDA events at the train step's marks (gsvc_tpu_torch.train.
     trainer.make_step_body): start, b3f_start, b3f_end (the context query
-    of the entropy phases), b1_start, b1_end, loss_end, b2_start, b2_end,
-    b3b_start, b3b_end, backward_end, adam_end; and the hash-grid kernels'
-    launch counts at start and adam_end."""
+    of the entropy phases), the composite's forward marks (b1_start,
+    b1_end at tile-aligned widths; b5f_start, b5f_end at others),
+    loss_end, the composite's backward marks (b2_start, b2_end or
+    b5b_start, b5b_end), b3b_start, b3b_end, backward_end, adam_end; and
+    the hash-grid kernels' launch counts at start and adam_end."""
 
     def __init__(self, hk):
         self.hk = hk
@@ -483,44 +512,53 @@ class StepTimer:
                 for e in self.steps]
 
     def split(self):
-        """Per step: {phase: ms}."""
+        """Per step: {phase: ms}; the composite's columns are B1 and
+        B2+scatter at tile-aligned widths, B5f and B5b at others (where
+        the gather's transpose falls in the rest of the backward)."""
         torch.cuda.synchronize()
         rows = []
         for e in self.steps:
             def ms(a, b, e=e):
                 return e[a].elapsed_time(e[b]) if a in e else 0.0
-            b2 = ms("b2_start", "b2_end")
+            f, b = (("b1", "b2") if "b1_start" in e else ("b5f", "b5b"))
+            fname, bname = (("B1", "B2+scatter") if f == "b1"
+                            else ("B5f", "B5b"))
+            bwd = ms(f"{b}_start", f"{b}_end")
             b3f = ms("b3f_start", "b3f_end")
             b3b = ms("b3b_start", "b3b_end")
             rows.append({
                 "step": ms("start", "adam_end"),
                 "B3f": b3f,
-                "generation+projection+binning": ms("start", "b1_start")
+                "generation+projection+binning": ms("start", f"{f}_start")
                 - b3f,
-                "B1": ms("b1_start", "b1_end"),
-                "loss": ms("b1_end", "loss_end"),
-                "B2+scatter": b2,
+                fname: ms(f"{f}_start", f"{f}_end"),
+                "loss": ms(f"{f}_end", "loss_end"),
+                bname: bwd,
                 "B3b": b3b,
-                "rest of backward": ms("loss_end", "backward_end") - b2
+                "rest of backward": ms("loss_end", "backward_end") - bwd
                 - b3b,
                 "Adam+stats": ms("backward_end", "adam_end"),
             })
         return rows
 
 
-def phase_of(it: int) -> str:
+def phase_of(it: int, phases=PHASES) -> str:
     """The schedule phase of iteration ``it`` (1-based)."""
     end = 0
-    for name, n in PHASES:
+    for name, n in phases:
         end += n
         if it <= end:
             return name
     return "STE_ENTROPY"
 
 
-def training_pair_inputs(fitter, i1: int):
+def training_pair_inputs(fitter, i1: int, flips=(False,)):
     """The composite's inputs for the frame pair (i1, i1 + 1) of the
-    fitted state, built as render_pair builds them (FULL_PRECISION)."""
+    fitted state, built as render_pair builds them (FULL_PRECISION): per
+    frame one view for the mirror composite (``flips`` (False,)), or the
+    forward and flip views each projected and binned on its own for the
+    single-view composite ((False, True)).  Returns (attrs [V, M, 9],
+    lists [V, T, cap], counts [V, T])."""
     from gsvc_tpu_torch.models.gaussians import (
         GenerateMode, generate_neural_gaussians, window_for_frame,
     )
@@ -538,15 +576,16 @@ def training_pair_inputs(fitter, i1: int):
             gss = generate_neural_gaussians(
                 st, fitter.gcfg, z, z, start, in_window, fitter.window_cap,
                 mode=GenerateMode.FULL_PRECISION, decoded=False)
-            proj = project_gaussians(gss.xyz, gss.scaling, gss.rot,
-                                     gss.valid, z, d.x_min, d.y_min,
-                                     d.scale, s)
-            tl, cnt, _, _, _ = _bin_gaussians(proj, s)
-            op = torch.where(proj.valid[:, None], gss.opacity,
-                             torch.zeros_like(gss.opacity))
-            attrs.append(attr_rows_from_proj(proj, op, gss.color))
-            lists.append(tl)
-            counts.append(cnt)
+            for flip in flips:
+                proj = project_gaussians(gss.xyz, gss.scaling, gss.rot,
+                                         gss.valid, z, d.x_min, d.y_min,
+                                         d.scale, s, flip=flip)
+                tl, cnt, _, _, _ = _bin_gaussians(proj, s)
+                op = torch.where(proj.valid[:, None], gss.opacity,
+                                 torch.zeros_like(gss.opacity))
+                attrs.append(attr_rows_from_proj(proj, op, gss.color))
+                lists.append(tl)
+                counts.append(cnt)
     return (torch.stack(attrs).contiguous(), torch.stack(lists),
             torch.stack(counts))
 
@@ -736,7 +775,7 @@ def training_phase(dec, bidir, mirror, hk):
     b1.update(launches=launches[0], max_abs_err=f_err, step_ms=fp["B1"])
     b2.update(launches=launches[1], max_abs_err=b_err,
               step_ms=fp["B2+scatter"])
-    return b1, b2, launches[2:], fitter
+    return b1, b2, launches[2:], fitter, frames
 
 
 def hash_flops(spec, n: int, backward: bool) -> int:
@@ -861,6 +900,367 @@ def hashgrid_phase(hk, fitter):
     return win, full
 
 
+def view_planes(attrs, lists, counts):
+    """The single-view composite's inputs for V views: planes 9 x [V*T,
+    cap] gathered from each view's attribute rows and lists, counts
+    [V*T]."""
+    from gsvc_tpu_torch.render.splat import gather_tile_planes_rows
+
+    views = [gather_tile_planes_rows(attrs[v], lists[v])
+             for v in range(attrs.shape[0])]
+    return (tuple(torch.cat([p[i] for p in views]).contiguous()
+                  for i in range(9)), counts.reshape(-1).contiguous())
+
+
+def tile_check(tile, settings, attrs, lists, counts, label):
+    """B5f (with and without checkpoints) and B5b against their plain
+    versions on V views' planes, and the plane gradients of both pushed
+    through the gather's transpose to per-gaussian rows, with and without
+    per-view means2d; then both kernels and plain versions timed against
+    their bounds.  Returns (B5f numbers, B5b numbers)."""
+    from gsvc_tpu_torch.render.splat import gather_tile_planes_rows
+
+    planes, cnt = view_planes(attrs, lists, counts)
+    out_k, chk_k = tile.tile_fwd_cuda(settings, planes, cnt)
+    inf_k, _ = tile.tile_fwd_cuda(settings, planes, cnt, save_tchk=False)
+    out_p, chk_p, pairs_f = tile.tile_fwd_plain(settings, planes, cnt)
+    torch.cuda.synchronize()
+    fwd_err = max(float((out_k - out_p).abs().max()),
+                  float((chk_k - chk_p).abs().max()),
+                  float((inf_k - out_p).abs().max()))
+    if not np.isfinite(fwd_err) or fwd_err > MAX_ABS_ERR:
+        raise AssertionError(f"{label}: B5f disagrees with its plain "
+                             f"version: {fwd_err} > {MAX_ABS_ERR}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(29)
+    g_out = torch.randn(out_p.shape, generator=gen, device="cuda")
+    # both versions replay from the same checkpoints: the same chunk stops
+    gr_k = tile.tile_bwd_cuda(settings, planes, cnt, chk_p, g_out)
+    gr_p, pairs_b = tile.tile_bwd_plain(settings, planes, cnt, chk_p, g_out)
+    torch.cuda.synchronize()
+    if not torch.isfinite(gr_k).all():
+        raise AssertionError(f"{label}: B5b gave non-finite gradients")
+    bwd_err = bwd_rel_err(gr_k, gr_p, 1)
+    bwd_abs = float((gr_k - gr_p).abs().max())
+    v_n, m = attrs.shape[0], attrs.shape[1]
+    for with_m2d in (False, True):
+        a = attrs.clone().requires_grad_(True)
+        ins = [a]
+        rows = a
+        if with_m2d:
+            m2d = torch.zeros((v_n, m, 2), device="cuda", requires_grad=True)
+            ins.append(m2d)
+            rows = torch.cat([a[..., :2] + m2d, a[..., 2:]], dim=-1)
+        views = [gather_tile_planes_rows(rows[v], lists[v])
+                 for v in range(v_n)]
+        pl = tuple(torch.cat([p[i] for p in views]) for i in range(9))
+        got = torch.autograd.grad(pl, ins, grad_outputs=gr_k.unbind(1),
+                                  retain_graph=True)
+        want = torch.autograd.grad(pl, ins, grad_outputs=gr_p.unbind(1))
+        bwd_err = max(bwd_err, bwd_rel_err(got[0], want[0], -1))
+        bwd_abs = max(bwd_abs, float((got[0] - want[0]).abs().max()))
+        if with_m2d:
+            bwd_err = max(bwd_err, bwd_rel_err(got[1], want[1], -1))
+            bwd_abs = max(bwd_abs, float((got[1] - want[1]).abs().max()))
+    if not np.isfinite(bwd_err) or bwd_err > BWD_REL_ERR:
+        raise AssertionError(f"{label}: B5b disagrees with its plain "
+                             f"version: {bwd_err} > {BWD_REL_ERR} of the "
+                             f"largest gradient")
+    f_ms = cuda_ms(lambda: tile.tile_fwd_cuda(settings, planes, cnt), 10)
+    b_ms = cuda_ms(lambda: tile.tile_bwd_cuda(settings, planes, cnt, chk_p,
+                                              g_out), 5)
+    f_plain = cuda_ms(lambda: tile.tile_fwd_plain(settings, planes, cnt), 1)
+    b_plain = cuda_ms(lambda: tile.tile_bwd_plain(settings, planes, cnt,
+                                                  chk_p, g_out), 1)
+    fb = bound_ms(nbytes(*planes, cnt, out_p, chk_p),
+                  pairs_f * FLOPS_PER_PAIR)
+    bb = bound_ms(nbytes(*planes, cnt, chk_p, g_out, gr_p),
+                  pairs_b * FLOPS_PER_BWD_PAIR)
+    log(f"{label}: {cnt.numel()} rows ({v_n} views), {int(cnt.sum())} "
+        f"copies, {int((cnt == 0).sum())} empty rows; B5f max |kernel - "
+        f"plain| {fwd_err:.3e} (limit {MAX_ABS_ERR:.0e}; out, t_chk and the "
+        f"checkpoint-free launch), kernel {f_ms:.4f} ms, plain "
+        f"{f_plain:.3f} ms, bound {fb[0]:.4f} ms ({fb[1]}; {pairs_f} "
+        f"pairs); B5b max |kernel - plain| / max |plain| {bwd_err:.3e} "
+        f"(limit {BWD_REL_ERR:.0e}; max |kernel - plain| {bwd_abs:.3e}; "
+        f"per-slot rows and the gather's transpose with and without "
+        f"means2d), kernel {b_ms:.4f} ms, plain {b_plain:.3f} ms, bound "
+        f"{bb[0]:.4f} ms ({bb[1]}; {pairs_b} pairs)")
+    return (dict(ms=f_ms, plain_ms=f_plain, bound_ms=fb[0], bound_by=fb[1],
+                 max_abs_err=fwd_err),
+            dict(ms=b_ms, plain_ms=b_plain, bound_ms=bb[0], bound_by=bb[1],
+                 max_abs_err=bwd_abs))
+
+
+def tile_kernel_phase(tile, settings):
+    """B5f/B5b against their plain versions at the 1080p training shapes:
+    V = 4 views of synthetic tiles."""
+    attrs, lists, counts = synthetic_frames(settings, seed=3, n_frames=4,
+                                            device="cuda")
+    return tile_check(tile, settings, attrs, lists, counts,
+                      "tile-kernel phase (B5f/B5b, synthetic 1080p)")
+
+
+def codec_phase(fitter, bidir, mirror, tile, hk):
+    """The encode half and the decode on the training phase's fitted
+    state: conduct_encoding -> save_streams -> load_streams ->
+    conduct_decoding -> evaluate_video over every frame through B4, with
+    the exactness checks of the round trip.  Returns B4's launches."""
+    import dataclasses
+
+    from gsvc_tpu_torch.codec.bitstream import (
+        conduct_decoding, conduct_encoding, load_streams,
+    )
+    from gsvc_tpu_torch.codec.estimate import estimate_final_bits
+    from gsvc_tpu_torch.models.gaussians import (
+        GenerateMode, get_mask, get_mask_anchor,
+    )
+    from gsvc_tpu_torch.ops.quant import quantize_anchor_indices, ste_binary
+    from gsvc_tpu_torch.report import bits_per_pixel, evaluate_video
+    from gsvc_tpu_torch.utils.checkpoint import save_streams
+
+    d, st = fitter.dataset, fitter.state
+    est = estimate_final_bits(st, fitter.gcfg)
+    psnr_ste = fitter.evaluate(mode=GenerateMode.STE_ENTROPY)["psnr"]
+    counters = (bidir.bidir_composite_attrs, mirror.mirror_forward,
+                mirror.mirror_backward, tile.tile_forward,
+                tile.tile_backward, hk.hashgrid_forward,
+                hk.hashgrid_backward)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streams, meta, bits, enc_state, enc_s = conduct_encoding(
+        st, fitter.gcfg, model_config=dataclasses.asdict(fitter.cfg.model),
+        video_info={"width": d.width, "height": d.height,
+                    "num_frames": d.num_frames})
+    out_dir = tempfile.mkdtemp(prefix="gsvc_smoke_bs_")
+    total = save_streams(out_dir, streams)
+    streams = load_streams(out_dir)
+    dec, _, dec_s = conduct_decoding(streams, fitter.gcfg, enc_state,
+                                     capacity=fitter.capacity, device="cuda")
+    ev = evaluate_video(dec, fitter.gcfg, fitter.settings, fitter.window_cap,
+                        fitter.frame_zs, d.x_min, d.y_min, d.scale,
+                        gt_images=d.images, mode=GenerateMode.DECODED,
+                        decoded=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = tuple(c.launches for c in counters)
+    bpp = bits_per_pixel(total * 8, d.width, d.height, d.num_frames)
+    log(f"codec phase: {meta.anchor_num} of {st.n_active} anchors coded; "
+        f"encode {enc_s:.3f} s, decode {dec_s:.3f} s, {total / 2 ** 20:.4f}"
+        f" MB ({total} bytes, {len(streams)} files), {bpp:.6f} bpp; "
+        f"estimate {est.total / 8 / 2 ** 20:.4f} MB; decoded PSNR "
+        f"{ev['psnr']:.4f} dB over {ev['num_frames']} frames (the fitter's "
+        f"STE eval of the state before the encode {psnr_ste:.4f} dB), "
+        f"{ev['fps']:.2f} decode fps; {wall:.2f} s wall; launches B4, B1, "
+        f"B2, B5f, B5b, B3f, B3b {launches}")
+    n_frames = len(fitter.frame_zs)
+    if launches != (n_frames, 0, 0, 0, 0, 0, 0):
+        raise AssertionError(f"codec phase launches {launches}: expected "
+                             f"B4 once per frame ({n_frames}) and nothing "
+                             f"else")
+    if not (bpp > 0 and np.isfinite(ev["psnr"])):
+        raise AssertionError(f"codec phase: bpp {bpp}, PSNR {ev['psnr']}")
+    # exactness: hash signs, mask counts, anchors
+    want_hash = ste_binary(enc_state.nets.hash_table)
+    if not torch.equal(dec.nets.hash_table, want_hash):
+        raise AssertionError("decoded hash signs differ from the "
+                             "STE-binarised table")
+    n = meta.anchor_num
+    keep = get_mask_anchor(st.anchors).clone()
+    keep[st.n_active:] = False
+    want_masks = int(get_mask(st.anchors)[keep].sum())
+    got_masks = int(dec.anchors.mask[:n].sum())
+    if got_masks != want_masks:
+        raise AssertionError(f"decoded masks {got_masks} != encoded "
+                             f"{want_masks}")
+    q, interval, lo = (t.numpy() for t in quantize_anchor_indices(
+        st.anchors.anchor.cpu(), st.x_bound_min.cpu(),
+        st.x_bound_max.cpu()))
+    want_a = (q.astype(np.float32) * interval + lo).astype(np.float32)[
+        keep.cpu().numpy()]
+    got_a = dec.anchors.anchor[:n].cpu().numpy()
+
+    def rows_sorted(a):
+        return a[np.lexsort(a.T[::-1])]
+
+    if got_a.shape != want_a.shape or not np.array_equal(
+            rows_sorted(got_a), rows_sorted(want_a)):
+        raise AssertionError("decoded anchors differ from the encoder's "
+                             "quantized anchors")
+    log(f"codec phase: exact: hash signs ({want_hash.numel()}), masks "
+        f"({got_masks} of {n * fitter.gcfg.n_offsets}), anchors ({n})")
+    return dict(encode_s=enc_s, decode_s=dec_s, mb=total / 2 ** 20,
+                bpp=bpp, est_mb=est.total / 8 / 2 ** 20,
+                psnr=ev["psnr"], psnr_ste=psnr_ste, launches=launches[0])
+
+
+NARROW = (480, 854)          # DAVIS 2017 480p: 854 = 6.67 x 128
+NARROW_PHASES = (("FULL_PRECISION", 4), ("QUANTIZED_NOISE", 2),
+                 ("ENTROPY", 3), ("STE_ENTROPY", 3))
+NARROW_STEPS = sum(n for _, n in NARROW_PHASES)
+NARROW_SET = {"optimization.iterations": NARROW_STEPS,
+              "optimization.full_precision_training_total": 4,
+              "optimization.quantized_training_total": 2,
+              "optimization.entropy_constrained_train_total": 3,
+              "optimization.ste_entropy_constrained_train_total": 3,
+              "optimization.start_stat": 1,
+              "optimization.pause_densification": 1,
+              "optimization.update_from": 2,
+              "optimization.update_interval": 4,
+              "optimization.update_until": NARROW_STEPS}
+
+
+def narrow_frames(frames, out_dir: pathlib.Path):
+    """The 1080p frames resized on the card (bilinear with antialiasing,
+    deterministic) to NARROW, written as uint8 PNGs."""
+    from PIL import Image
+
+    out_dir.mkdir(parents=True)
+    for i0 in range(0, len(frames), 50):
+        x = torch.from_numpy(np.ascontiguousarray(frames[i0:i0 + 50])).cuda()
+        x = x.permute(0, 3, 1, 2).float()
+        y = torch.nn.functional.interpolate(x, size=NARROW, mode="bilinear",
+                                            antialias=True,
+                                            align_corners=False)
+        u8 = torch.round(y.clamp(0, 255)).to(torch.uint8)
+        for j, fr in enumerate(u8.permute(0, 2, 3, 1).cpu().numpy()):
+            Image.fromarray(fr).save(out_dir / f"f_{i0 + j:04d}.png",
+                                     compress_level=1)
+
+
+def narrow_phase(frames, bidir, mirror, tile, hk):
+    """``gsvc_tpu_torch.cli.train.main`` without --skip_codec on the frames
+    resized to 854x480 (not a multiple of tile_w 128): the fixture's full
+    model with a short four-phase schedule overlaid, then the estimate,
+    encode, save, decode and the decoded evaluation.  The launch counts
+    are reset just before main and read just after, per step (B5f and B5b
+    once each, nothing else of the composites), per evaluation (B5f once
+    per frame) and in all.  Then B5f/B5b against their plain versions on
+    the fitted state's pair 299-300.  Returns (B5f numbers, B5b numbers,
+    the results)."""
+    import gsvc_tpu_torch.report as report
+    from gsvc_tpu_torch.cli import train as cli
+    from gsvc_tpu_torch.config import load_config
+    from gsvc_tpu_torch.framecube.frame import FrameCubeDataset
+    from gsvc_tpu_torch.train.fit import GOPFitter
+    from gsvc_tpu_torch.utils.checkpoint import load_checkpoint
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="gsvc_smoke_narrow_"))
+    t0 = time.perf_counter()
+    narrow_frames(frames, tmp / "frames")
+    log(f"narrow-width phase: {len(frames)} frames resized on the card to "
+        f"{NARROW[1]}x{NARROW[0]} PNGs in {time.perf_counter() - t0:.2f} s")
+
+    counters = (tile.tile_forward, tile.tile_backward, mirror.mirror_forward,
+                mirror.mirror_backward, bidir.bidir_composite_attrs)
+
+    def counts():
+        return tuple(c.launches for c in counters)
+
+    steps, losses, evals, timers = [], [], [], []
+    orig = (GOPFitter.__init__, GOPFitter._run_single, GOPFitter.evaluate,
+            report.evaluate_video)
+
+    def init(self, *a, **k):
+        orig[0](self, *a, **k)
+        self.timer = StepTimer(hk)
+        timers.append(self.timer)
+
+    def run_single(self, *a, **k):
+        c0 = counts()
+        m = orig[1](self, *a, **k)
+        steps.append(tuple(b - a for a, b in zip(c0, counts())))
+        losses.append(float(m.loss))
+        return m
+
+    def evaluate(self, *a, **k):
+        c0 = counts()
+        r = orig[2](self, *a, **k)
+        evals.append(("fitter", len(r["per_frame"]),
+                      tuple(b - a for a, b in zip(c0, counts()))))
+        return r
+
+    def evaluate_video(*a, **k):
+        c0 = counts()
+        r = orig[3](*a, **k)
+        evals.append(("decoded", r["num_frames"],
+                      tuple(b - a for a, b in zip(c0, counts()))))
+        return r
+
+    argv = ["--source_path", str(tmp / "frames"), "--model_path",
+            str(tmp / "out"), "--config_path",
+            str(FIXTURE_DIR / "cfg_args.yaml"),
+            "--eval_every", str(NARROW_STEPS)]
+    for k, v in NARROW_SET.items():
+        argv += ["--set", f"{k}={v}"]
+    GOPFitter.__init__, GOPFitter._run_single = init, run_single
+    GOPFitter.evaluate, report.evaluate_video = evaluate, evaluate_video
+    try:
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        total = counts()
+    finally:
+        GOPFitter.__init__, GOPFitter._run_single = orig[:2]
+        GOPFitter.evaluate, report.evaluate_video = orig[2:]
+    log(f"narrow-width phase: cli.train.main in {wall:.2f} s wall: "
+        f"results {json.dumps(res)}")
+    log(f"narrow-width phase: launches B5f, B5b, B1, B2, B4 in all {total}; "
+        f"per step {steps}; per evaluation "
+        f"{[(kind, n, c) for kind, n, c in evals]}")
+    if len(steps) != NARROW_STEPS or any(c != (1, 1, 0, 0, 0)
+                                         for c in steps):
+        raise AssertionError(f"per-step launches {steps}: expected B5f and "
+                             f"B5b once per step and nothing else")
+    kinds = [kind for kind, _, _ in evals]
+    if kinds != ["fitter", "decoded"] or any(
+            c != (n, 0, 0, 0, 0) for _, n, c in evals):
+        raise AssertionError(f"evaluation launches {evals}: expected B5f "
+                             f"once per frame of the fitter's and the "
+                             f"decoded evaluation and nothing else")
+    n_eval = sum(n for _, n, _ in evals)
+    if total != (NARROW_STEPS + n_eval, NARROW_STEPS, 0, 0, 0):
+        raise AssertionError(f"launches {total}")
+    if len(losses) != NARROW_STEPS or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"losses {losses}")
+    if not (res["bpp"] > 0 and np.isfinite(res["decoded_psnr"])):
+        raise AssertionError(f"results {res}")
+    log("narrow-width phase: loss per step " + ", ".join(
+        f"{v:.5f}" for v in losses))
+    split = timers[0].split()
+    meds = {}
+    for name, _ in NARROW_PHASES:
+        rows = [r for it, r in enumerate(split, start=1)
+                if phase_of(it, NARROW_PHASES) == name and it > 1]
+        meds[name] = {k: float(np.median([r[k] for r in rows]))
+                      for k in rows[0]}
+        log(f"narrow-width phase: {name} median step over {len(rows)} "
+            f"steps: " + ", ".join(f"{k} {v:.3f} ms"
+                                    for k, v in meds[name].items())
+            + f" ({1e3 / meds[name]['step']:.3f} it/s at "
+            f"{NARROW[1]}x{NARROW[0]})")
+
+    # the kernels on the fitted state's pair 299-300 (main-path inputs)
+    cfg = load_config(str(FIXTURE_DIR / "cfg_args.yaml"),
+                      overrides=NARROW_SET)
+    dataset = FrameCubeDataset(str(tmp / "frames"))
+    fitter = GOPFitter(cfg, dataset, seed=0, device="cuda")
+    load_checkpoint(str(tmp / "out" / "chkpnt_final.pkl"), fitter)
+    attrs, lists, cnt = training_pair_inputs(fitter, 299, (False, True))
+    b5f, b5b = tile_check(tile, fitter.settings, attrs, lists, cnt,
+                          "narrow-width phase (frames 299-300)")
+    b5f.update(launches=total[0], step_ms=meds["FULL_PRECISION"]["B5f"])
+    b5b.update(launches=total[1], step_ms=meds["FULL_PRECISION"]["B5b"])
+    del fitter
+    return b5f, b5b, res, meds
+
+
 # python3 chip_smoke.py --fit-study [index ...]: name, seed, fit steps,
 # eval every, overrides on STUDY_SCHEDULE, keep the frame draws of a run
 # without epochs (the epoch's random draws are undone).  STUDY_SCHEDULE
@@ -949,7 +1349,7 @@ def main() -> int:
         return 1
     from gsvc_tpu_torch import build
     from gsvc_tpu_torch.ops import hashgrid_kernels as hk
-    from gsvc_tpu_torch.render import bidir, mirror
+    from gsvc_tpu_torch.render import bidir, mirror, tile
     from gsvc_tpu_torch.render.splat import RasterSettings
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -980,9 +1380,15 @@ def main() -> int:
                                     gaussian_cap=1024, chunk=128,
                                     tiles_per_gaussian=32)
     mk_fwd, mk_bwd = mirror_kernel_phase(mirror, train_settings)
+    t5f, t5b = tile_kernel_phase(tile, train_settings)
     res, dec = slice_phase(bidir)
-    b1, b2, b3_launches, fitter = training_phase(dec, bidir, mirror, hk)
+    b1, b2, b3_launches, fitter, frames = training_phase(dec, bidir, mirror,
+                                                         hk)
     (h3f, h3b), (c3f, c3b) = hashgrid_phase(hk, fitter)
+    codec_phase(fitter, bidir, mirror, tile, hk)
+    del fitter
+    torch.cuda.empty_cache()
+    b5f, b5b, _, _ = narrow_phase(frames, bidir, mirror, tile, hk)
 
     table = {"kernels": [{
         "name": "bidir_composite_attrs",
@@ -1044,6 +1450,30 @@ def main() -> int:
         "bound_ms": h3b["bound_ms"],
         "bound_by": h3b["bound_by"],
         "library_ms": None,   # no PyTorch call computes a hash-grid encode
+    }, {
+        "name": "tile_forward",
+        "route": "cuda",
+        "source": "gsvc_tpu_torch/csrc/tile_fwd.cu",
+        "replaces": "gsvc_tpu/render/pallas_splat.py:277",
+        "launches": b5f["launches"],
+        "max_abs_err": max(t5f["max_abs_err"], b5f["max_abs_err"]),
+        "ms": b5f["ms"],
+        "plain_ms": b5f["plain_ms"],
+        "bound_ms": b5f["bound_ms"],
+        "bound_by": b5f["bound_by"],
+        "library_ms": None,   # no PyTorch call computes a tile composite
+    }, {
+        "name": "tile_backward",
+        "route": "cuda",
+        "source": "gsvc_tpu_torch/csrc/tile_bwd.cu",
+        "replaces": "gsvc_tpu/render/pallas_splat.py:349",
+        "launches": b5b["launches"],
+        "max_abs_err": max(t5b["max_abs_err"], b5b["max_abs_err"]),
+        "ms": b5b["ms"],
+        "plain_ms": b5b["plain_ms"],
+        "bound_ms": b5b["bound_ms"],
+        "bound_by": b5b["bound_by"],
+        "library_ms": None,   # no PyTorch call computes a tile composite
     }]}
     log(json.dumps(table))
     log(f"wall: {time.perf_counter() - t_start:.1f} s")

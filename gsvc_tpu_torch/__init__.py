@@ -10,8 +10,12 @@ version (the tests), on a CUDA tensor it launches the hand-written kernel.
 Ported so far: the standalone decoder (``python -m gsvc_tpu_torch.cli.decode``)
 — bitstream in, host entropy decode, then gaussian generation,
 projection, binning and the bidirectional composite kernel (B4) on the
-card; and fitting a GOP through the four phases of the schedule with
-densify epochs (``python -m gsvc_tpu_torch.cli.train --skip_codec``)
-through the mirror compositing kernels B1 (forward) and B2 (backward)
-and, in the entropy phases, the hash-grid kernels B3f and B3b.
+card; and encoding a GOP (``python -m gsvc_tpu_torch.cli.train``): the
+fit through the four phases of the schedule with densify epochs, then
+the rate estimate, the encode into the JAX package's bitstream format,
+the decode and the decoded evaluation.  Training composites through the
+mirror kernels B1 (forward) and B2 (backward) when the frame width is a
+multiple of ``tile_w`` and through the single-view kernels B5f and B5b
+otherwise (where the decoded frame is B5f's two views, not B4's); the
+entropy phases add the hash-grid kernels B3f and B3b.
 """

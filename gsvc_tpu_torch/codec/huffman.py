@@ -1,13 +1,39 @@
-"""Canonical Huffman decoding of the 8-bit-quantized MLP weights
-(port of the decode half of ``gsvc_tpu/codec/huffman.py``).
+"""Canonical Huffman coding of the 8-bit-quantized MLP weights (port of
+``gsvc_tpu/codec/huffman.py``).
 
 The table ships as canonically sorted (symbol, bit_length) pairs; codes
-are reassigned from it exactly as the encoder assigned them.
+are assigned from it in the same order on both sides.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import heapq
+from collections import Counter
+from typing import Dict, List, Sequence, Tuple
+
+
+def _code_lengths(freqs: Dict[int, int]) -> Dict[int, int]:
+    if len(freqs) == 1:
+        return {next(iter(freqs)): 1}
+    heap = [(f, i, (s,)) for i, (s, f) in enumerate(sorted(freqs.items()))]
+    heapq.heapify(heap)
+    lengths = {s: 0 for s in freqs}
+    counter = len(heap)
+    while len(heap) > 1:
+        f1, _, s1 = heapq.heappop(heap)
+        f2, _, s2 = heapq.heappop(heap)
+        for s in s1 + s2:
+            lengths[s] += 1
+        heapq.heappush(heap, (f1 + f2, counter, s1 + s2))
+        counter += 1
+    return lengths
+
+
+def build_canonical_code(symbols: Sequence[int]) -> List[Tuple[int, int]]:
+    """[(symbol, bit_length)] sorted canonically (by length, then
+    symbol)."""
+    lengths = _code_lengths(Counter(symbols))
+    return sorted(lengths.items(), key=lambda kv: (kv[1], kv[0]))
 
 
 def _assign_codes(table: List[Tuple[int, int]]) -> Dict[int, Tuple[int, int]]:
@@ -20,6 +46,25 @@ def _assign_codes(table: List[Tuple[int, int]]) -> Dict[int, Tuple[int, int]]:
         code += 1
         prev_len = length
     return codes
+
+
+def huffman_encode(symbols: Sequence[int],
+                   table: List[Tuple[int, int]]) -> bytes:
+    codes = _assign_codes(table)
+    acc = 0
+    nbits = 0
+    out = bytearray()
+    for s in symbols:
+        code, length = codes[s]
+        acc = (acc << length) | code
+        nbits += length
+        while nbits >= 8:
+            nbits -= 8
+            out.append((acc >> nbits) & 0xFF)
+        acc &= (1 << nbits) - 1      # keep only the bits not yet written
+    if nbits:
+        out.append((acc << (8 - nbits)) & 0xFF)
+    return bytes(out)
 
 
 def huffman_decode(data: bytes, table: List[Tuple[int, int]],

@@ -26,12 +26,12 @@ _NUMPY = {
     ("numpy", "ndarray"): np.ndarray,
     ("numpy", "dtype"): np.dtype,
 }
-_META_CLASS = ("gsvc_tpu.codec.bitstream", "EncodeMeta")
+META_CLASS = ("gsvc_tpu.codec.bitstream", "EncodeMeta")
 
 
 class _Unpickler(pickle.Unpickler):
     def find_class(self, module, name):
-        if (module, name) == _META_CLASS:
+        if (module, name) == META_CLASS:
             from gsvc_tpu_torch.codec.bitstream import EncodeMeta
 
             return EncodeMeta

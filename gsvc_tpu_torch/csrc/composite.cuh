@@ -1,7 +1,7 @@
 // Shared pieces of the port's tile-compositing kernels (B1 mirror_fwd.cu, B2
-// mirror_bwd.cu, B4 bidir.cu): the constants of the TPU kernels
-// (gsvc_tpu/render/pallas_splat.py), the shared-memory stage of one chunk of a
-// tile's depth-sorted copies, and the alpha of a copy at a pixel.
+// mirror_bwd.cu, B4 bidir.cu, B5f tile_fwd.cu, B5b tile_bwd.cu): the constants of the
+// TPU kernels (gsvc_tpu/render/pallas_splat.py), the shared-memory stage of one chunk
+// of a tile's depth-sorted copies, and the alpha of a copy at a pixel.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -44,6 +44,31 @@ __device__ __forceinline__ void load_chunk(Chunk& s, const float* __restrict__ r
       s.mx[i] = s.my[i] = s.ha[i] = s.hb[i] = s.hc[i] = 0.0f;
       s.op[i] = s.r[i] = s.g[i] = s.b[i] = 0.0f;
     }
+  }
+}
+
+// The nine [rows, cap] attribute planes of the single-view composite (B5f/B5b), in
+// the attribute order above; padding slots carry opacity 0.
+struct Planes {
+  const float* p[9];
+};
+
+// Stages chunk c of plane row `row` (tile-local means, conic * -1/2), as load_chunk.
+__device__ __forceinline__ void load_plane_chunk(Chunk& s, const Planes& pl, int row,
+                                                 int c, int chunk, int cap, float cx,
+                                                 float cy) {
+  const size_t base = static_cast<size_t>(row) * cap + static_cast<size_t>(c) * chunk;
+  for (int i = threadIdx.x; i < chunk; i += blockDim.x) {
+    const size_t k = base + i;
+    s.mx[i] = pl.p[0][k] - cx;
+    s.my[i] = pl.p[1][k] - cy;
+    s.ha[i] = -0.5f * pl.p[2][k];
+    s.hb[i] = -0.5f * pl.p[3][k];
+    s.hc[i] = -0.5f * pl.p[4][k];
+    s.op[i] = pl.p[5][k];
+    s.r[i] = pl.p[6][k];
+    s.g[i] = pl.p[7][k];
+    s.b[i] = pl.p[8][k];
   }
 }
 

@@ -43,6 +43,14 @@ BLOCK_THREADS = 256
 
 
 def _check_inputs(settings: RasterSettings, attrs, tile_lists, counts):
+    # both composites that read the flip view from the forward lists (B4
+    # here, B1/B2 in render/mirror.py) need the screen mirror to map tile
+    # columns onto tile columns; other widths take render/tile.py (B5)
+    if settings.image_width != settings.n_tiles_x * settings.tile_w:
+        raise ValueError(
+            f"the mirror and bidirectional composites need a tile-aligned "
+            f"width: {settings.image_width} is not a multiple of tile_w "
+            f"{settings.tile_w}")
     if attrs.dim() != 3 or attrs.shape[2] != 9:
         raise ValueError(f"attrs: expected [F, M, 9], got "
                          f"{tuple(attrs.shape)}")

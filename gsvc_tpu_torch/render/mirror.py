@@ -67,11 +67,6 @@ def check_inputs(settings: RasterSettings, attrs, tile_lists, counts):
             "the port composites in float32 only; compute_dtype "
             f"{settings.compute_dtype!r} / matmul_dtype "
             f"{settings.matmul_dtype!r} are TPU MXU precision policies")
-    if settings.image_width != settings.n_tiles_x * settings.tile_w:
-        raise ValueError(
-            f"the mirror composite needs a tile-aligned width: "
-            f"{settings.image_width} is not a multiple of tile_w "
-            f"{settings.tile_w}")
     _check_inputs(settings, attrs, tile_lists, counts)
     return attrs.shape[0]
 
@@ -293,32 +288,29 @@ def mirror_composite_attrs(settings: RasterSettings, attrs, tile_lists,
 # ---------------------------------------------------------------------------
 
 class _Tiles:
-    """Per-grid-row geometry and gathered attribute rows of a batch."""
+    """Per-step geometry and attribute rows of a batch of composite steps
+    (one tile of one view each).  Shared by the plain versions of the
+    mirror composite (B1/B2) and of the single-view composite (B5f/B5b,
+    ``render/tile.py``)."""
 
-    def __init__(self, settings, attrs, tile_lists, counts, sel):
-        f_n, m, _ = attrs.shape
-        t_n, cap = settings.n_tiles, settings.gaussian_cap
+    def __init__(self, settings, rows, u, v, cnt, out_row):
+        """rows [S, cap, 9] (opacity 0 on padding slots), u [S] the tile
+        whose pixels a step composites from, v [S] 1 for a flip step of
+        the mirror composite, cnt [S] list lengths, out_row [S] the output
+        row of each step."""
         th, tw = settings.tile_h, settings.tile_w
-        dev = attrs.device
-        d_all, v_all, out_all = grid_rows(settings, f_n, dev)
-        d, self.v, self.out_row = d_all[sel], v_all[sel], out_all[sel]
-        u = d % t_n
-        lists = tile_lists.reshape(f_n * t_n, cap)[d].long()
+        dev = rows.device
+        self.rows, self.v, self.cnt, self.out_row = rows, v, cnt, out_row
         self.cx = ((u % settings.n_tiles_x) * tw).float() + (tw - 1) / 2.0
         self.cy = ((u // settings.n_tiles_x) * th).float() + (th - 1) / 2.0
         lin = torch.arange(th * tw, device=dev)
         xs = (lin % tw).float() - (tw - 1) / 2.0
         self.ys = (lin // tw).float() - (th - 1) / 2.0
-        self.xs = torch.where(self.v[:, None] == 1, -xs, xs)   # [S, P]
-        self.n_chunks = cap // settings.chunk
-        cnt = counts.reshape(-1)[d].long()
-        self.cnt = cnt
-        self.n_used = torch.clamp((cnt + settings.chunk - 1)
-                                  // settings.chunk, max=self.n_chunks)
-        self.rows = attrs.reshape(f_n * m, 9)[
-            (d // t_n)[:, None] * m + lists.clamp_min(0)]   # [S, cap, 9]
-        self.valid = lists >= 0
+        self.xs = torch.where(v[:, None] == 1, -xs, xs)        # [S, P]
         self.chunk = settings.chunk
+        self.n_chunks = settings.gaussian_cap // settings.chunk
+        self.n_used = torch.clamp((cnt + self.chunk - 1) // self.chunk,
+                                  max=self.n_chunks)
 
     def chunk_of(self, p, idx):
         """Data chunk at composite position p for rows ``idx`` (batch
@@ -338,8 +330,6 @@ class _Tiles:
         slot = c[:, None] * self.chunk + order                 # [S, C]
         r = torch.gather(self.rows[idx], 1,
                          slot[..., None].expand(-1, -1, 9))
-        op = torch.where(torch.gather(self.valid[idx], 1, slot),
-                         r[..., 5], torch.zeros_like(r[..., 5]))
         mu_x = r[..., 0] - self.cx[idx, None]
         mu_y = r[..., 1] - self.cy[idx, None]
         d0 = self.xs[idx, None, :] - mu_x[..., None]
@@ -348,17 +338,31 @@ class _Tiles:
                       -0.5 * r[..., 4:5])
         uu = ha * d0 + hb * d1
         vv = hb * d0 + hc * d1
-        raw = op[..., None] * torch.exp(d0 * uu + d1 * vv)
+        raw = r[..., 5:6] * torch.exp(d0 * uu + d1 * vv)
         alpha = torch.clamp(raw, max=ALPHA_MAX)
         ge_min = alpha >= ALPHA_MIN
         alpha = torch.where(ge_min, alpha, torch.zeros_like(alpha))
         act = ge_min & (raw < ALPHA_MAX)
-        r = torch.cat([r[..., :5], op[..., None], r[..., 6:]], dim=-1)
         return slot, alpha, act, d0, d1, r
 
     def real_copies(self, p, idx):
         c = self.chunk_of(p, idx)
         return torch.clamp(self.cnt[idx] - c * self.chunk, 0, self.chunk)
+
+
+def _mirror_tiles(settings, attrs, tile_lists, counts, sel):
+    """_Tiles of the mirror grid's steps ``sel``."""
+    f_n, m, _ = attrs.shape
+    t_n, cap = settings.n_tiles, settings.gaussian_cap
+    d_all, v_all, out_all = grid_rows(settings, f_n, attrs.device)
+    d = d_all[sel]
+    lists = tile_lists.reshape(f_n * t_n, cap)[d].long()
+    rows = attrs.reshape(f_n * m, 9)[
+        (d // t_n)[:, None] * m + lists.clamp_min(0)]       # [S, cap, 9]
+    rows[..., 5] = torch.where(lists >= 0, rows[..., 5],
+                               torch.zeros_like(rows[..., 5]))
+    return _Tiles(settings, rows, d % t_n, v_all[sel],
+                  counts.reshape(-1)[d].long(), out_all[sel])
 
 
 def _excl_cumprod(x: torch.Tensor):
@@ -367,6 +371,98 @@ def _excl_cumprod(x: torch.Tensor):
     incl = torch.cumprod(x, dim=1)
     return (torch.cat([torch.ones_like(incl[:, :1]), incl[:, :-1]], dim=1),
             incl[:, -1])
+
+
+def composite_rows(settings: RasterSettings, tl: _Tiles):
+    """Forward composite of a batch of steps, chunk by chunk, with the
+    kernels' per-step loop stops as masks.  Returns (colour sums [S, 3, P],
+    final T [S, P], checkpoints [S, n_chunks + 1, P], evaluated (copy,
+    pixel) pairs of real copies)."""
+    s_n, p_pix = tl.xs.shape
+    n_chunks = tl.n_chunks
+    dev = tl.rows.device
+    t = torch.ones(s_n, p_pix, device=dev)
+    acc = torch.zeros(s_n, 3, p_pix, device=dev)
+    chk = torch.empty(s_n, n_chunks + 1, p_pix, device=dev)
+    alive = torch.ones(s_n, dtype=torch.bool, device=dev)
+    pairs = 0
+    for p in range(n_chunks):
+        # position p runs while p < n_used and some pixel keeps
+        # T >= T_EPS; stopped rows keep their final T
+        chk[:, p] = t
+        alive &= (p < tl.n_used) & (t.amax(dim=1) >= T_EPS)
+        idx = alive.nonzero().squeeze(1)
+        if idx.numel() == 0:
+            chk[:, p + 1:n_chunks] = t[:, None]
+            break
+        _, alpha, _, _, _, r = tl.load(p, idx)
+        excl, chunk_t = _excl_cumprod(1.0 - alpha)
+        t_before = t[idx, None, :] * excl
+        w = torch.where(t_before >= T_EPS, alpha * t_before,
+                        torch.zeros_like(alpha))
+        acc[idx] += torch.bmm(r[..., 6:9].transpose(1, 2), w)
+        t[idx] = t[idx] * chunk_t
+        pairs += int(tl.real_copies(p, idx).sum())
+    chk[:, n_chunks] = t
+    return acc, t, chk, pairs * p_pix
+
+
+def backward_rows(settings: RasterSettings, tl: _Tiles, chk, g_out4,
+                  grads):
+    """Reverse replay of a batch of steps from p_hot, the last used
+    position with a live pixel; writes each step's [9, cap] gradients
+    into ``grads`` (rows in batch order, zeros where the replay never
+    reaches).  ``chk`` [S, n_chunks + 1, P] and ``g_out4`` [S, 4, P] are
+    the steps' checkpoints and output cotangents.  Returns the evaluated
+    (copy, pixel) pairs of real copies."""
+    n_chunks = tl.n_chunks
+    dev = tl.rows.device
+    g3 = g_out4[:, 0:3]                                      # [S, 3, P]
+    a_acc = chk[:, n_chunks] * (settings.bg * g3.sum(dim=1) + g_out4[:, 3])
+    pos = torch.arange(n_chunks, device=dev)
+    live_pos = (chk[:, :n_chunks].amax(dim=2) >= T_EPS) \
+        & (pos[None] < tl.n_used[:, None])
+    p_hot = torch.where(live_pos, pos[None], -1).amax(dim=1)
+    pairs = 0
+    for p in range(n_chunks - 1, -1, -1):
+        idx = (p <= p_hot).nonzero().squeeze(1)
+        if idx.numel() == 0:
+            continue
+        slot, alpha, act, d0, d1, r = tl.load(p, idx)
+        one_m = 1.0 - alpha
+        t_before = chk[idx, p, None, :] * _excl_cumprod(one_m)[0]
+        live = t_before >= T_EPS
+        w = torch.where(live, alpha * t_before, torch.zeros_like(alpha))
+        gc = torch.einsum("sck,skp->scp", r[..., 6:9], g3[idx])
+        wgc = w * gc
+        # suffix in composite order, exclusive of the copy itself
+        suffix = torch.flip(torch.cumsum(torch.flip(wgc, [1]), 1), [1])
+        a_i = a_acc[idx, None, :] + torch.cat(
+            [suffix[:, 1:], torch.zeros_like(suffix[:, :1])], dim=1)
+        d_alpha = torch.where(
+            live & act, gc * t_before - a_i / torch.clamp(one_m, min=1e-6),
+            torch.zeros_like(alpha))
+        dq = d_alpha * alpha * (-0.5)
+        s0 = dq.sum(dim=2)
+        s1 = (dq * d0).sum(dim=2)
+        s2 = (dq * d1).sum(dim=2)
+        s3 = (dq * d0 * d0).sum(dim=2)
+        s4 = (dq * d0 * d1).sum(dim=2)
+        s5 = (dq * d1 * d1).sum(dim=2)
+        dcol = torch.einsum("scp,skp->sck", w, g3[idx])
+        con_a, con_b, con_c, op = (r[..., 2], r[..., 3], r[..., 4],
+                                   r[..., 5])
+        vals = torch.stack([
+            -(2.0 * con_a * s1 + 2.0 * con_b * s2),
+            -(2.0 * con_c * s2 + 2.0 * con_b * s1),
+            s3, 2.0 * s4, s5,
+            -2.0 * s0 / torch.clamp(op, min=1e-12),
+            dcol[..., 0], dcol[..., 1], dcol[..., 2]], dim=1)  # [S, 9, C]
+        grads[idx[:, None, None], torch.arange(9, device=dev)[None, :, None],
+              slot[:, None, :]] = vals
+        a_acc[idx] = a_acc[idx] + wgc.sum(dim=1)
+        pairs += int(tl.real_copies(p, idx).sum())
+    return pairs * tl.xs.shape[1]
 
 
 def mirror_fwd_plain(settings: RasterSettings, attrs, tile_lists, counts):
@@ -384,34 +480,13 @@ def mirror_fwd_plain(settings: RasterSettings, attrs, tile_lists, counts):
     pairs = 0
     for b0 in range(0, n_grid, PLAIN_BATCH):
         sel = torch.arange(b0, min(b0 + PLAIN_BATCH, n_grid), device=dev)
-        tl = _Tiles(settings, attrs, tile_lists, counts, sel)
-        s_n = sel.numel()
-        t = torch.ones(s_n, p_pix, device=dev)
-        acc = torch.zeros(s_n, 3, p_pix, device=dev)
-        chk = torch.empty(s_n, n_chunks + 1, p_pix, device=dev)
-        alive = torch.ones(s_n, dtype=torch.bool, device=dev)
-        for p in range(n_chunks):
-            # position p runs while p < n_used and some pixel keeps
-            # T >= T_EPS; stopped rows keep their final T
-            chk[:, p] = t
-            alive &= (p < tl.n_used) & (t.amax(dim=1) >= T_EPS)
-            idx = alive.nonzero().squeeze(1)
-            if idx.numel() == 0:
-                chk[:, p + 1:n_chunks] = t[:, None]
-                break
-            _, alpha, _, _, _, r = tl.load(p, idx)
-            excl, chunk_t = _excl_cumprod(1.0 - alpha)
-            t_before = t[idx, None, :] * excl
-            w = torch.where(t_before >= T_EPS, alpha * t_before,
-                            torch.zeros_like(alpha))
-            acc[idx] += torch.bmm(r[..., 6:9].transpose(1, 2), w)
-            t[idx] = t[idx] * chunk_t
-            pairs += int(tl.real_copies(p, idx).sum())
-        chk[:, n_chunks] = t
+        tl = _mirror_tiles(settings, attrs, tile_lists, counts, sel)
+        acc, t, chk, n = composite_rows(settings, tl)
         out4[tl.out_row, 0:3] = acc + t[:, None] * settings.bg
         out4[tl.out_row, 3] = t
         t_chk[tl.out_row] = chk
-    return out4, t_chk, pairs * p_pix
+        pairs += n
+    return out4, t_chk, pairs
 
 
 def mirror_bwd_plain(settings: RasterSettings, attrs, tile_lists, counts,
@@ -421,62 +496,13 @@ def mirror_bwd_plain(settings: RasterSettings, attrs, tile_lists, counts,
     copies)."""
     f_n = check_inputs(settings, attrs, tile_lists, counts)
     n_grid = 2 * f_n * settings.n_tiles
-    cap = settings.gaussian_cap
-    n_chunks = cap // settings.chunk
     dev = attrs.device
-    grads = torch.zeros((n_grid, 9, cap), dtype=torch.float32, device=dev)
+    grads = torch.zeros((n_grid, 9, settings.gaussian_cap),
+                        dtype=torch.float32, device=dev)
     pairs = 0
     for b0 in range(0, n_grid, PLAIN_BATCH):
         sel = torch.arange(b0, min(b0 + PLAIN_BATCH, n_grid), device=dev)
-        tl = _Tiles(settings, attrs, tile_lists, counts, sel)
-        chk = t_chk[tl.out_row]                              # [S, n+1, P]
-        g3 = g_out[tl.out_row, 0:3]                          # [S, 3, P]
-        a_acc = chk[:, n_chunks] * (settings.bg * g3.sum(dim=1)
-                                    + g_out[tl.out_row, 3])
-        # p_hot: the last used position with a live pixel (-1: none)
-        pos = torch.arange(n_chunks, device=dev)
-        live_pos = (chk[:, :n_chunks].amax(dim=2) >= T_EPS) \
-            & (pos[None] < tl.n_used[:, None])
-        p_hot = torch.where(live_pos, pos[None], -1).amax(dim=1)
-        gsel = grads[b0:b0 + sel.numel()]                    # a view
-        for p in range(n_chunks - 1, -1, -1):
-            idx = (p <= p_hot).nonzero().squeeze(1)
-            if idx.numel() == 0:
-                continue
-            slot, alpha, act, d0, d1, r = tl.load(p, idx)
-            one_m = 1.0 - alpha
-            t_before = chk[idx, p, None, :] * _excl_cumprod(one_m)[0]
-            live = t_before >= T_EPS
-            w = torch.where(live, alpha * t_before, torch.zeros_like(alpha))
-            gc = torch.einsum("sck,skp->scp", r[..., 6:9], g3[idx])
-            wgc = w * gc
-            # suffix in composite order, exclusive of the copy itself
-            suffix = torch.flip(torch.cumsum(torch.flip(wgc, [1]), 1), [1])
-            a_i = a_acc[idx, None, :] + torch.cat(
-                [suffix[:, 1:], torch.zeros_like(suffix[:, :1])], dim=1)
-            d_alpha = torch.where(
-                live & act, gc * t_before - a_i / torch.clamp(one_m,
-                                                              min=1e-6),
-                torch.zeros_like(alpha))
-            dq = d_alpha * alpha * (-0.5)
-            s0 = dq.sum(dim=2)
-            s1 = (dq * d0).sum(dim=2)
-            s2 = (dq * d1).sum(dim=2)
-            s3 = (dq * d0 * d0).sum(dim=2)
-            s4 = (dq * d0 * d1).sum(dim=2)
-            s5 = (dq * d1 * d1).sum(dim=2)
-            dcol = torch.einsum("scp,skp->sck", w, g3[idx])
-            con_a, con_b, con_c, op = (r[..., 2], r[..., 3], r[..., 4],
-                                       r[..., 5])
-            vals = torch.stack([
-                -(2.0 * con_a * s1 + 2.0 * con_b * s2),
-                -(2.0 * con_c * s2 + 2.0 * con_b * s1),
-                s3, 2.0 * s4, s5,
-                -2.0 * s0 / torch.clamp(op, min=1e-12),
-                dcol[..., 0], dcol[..., 1], dcol[..., 2]], dim=1)  # [S,9,C]
-            gsel[idx[:, None, None], torch.arange(9, device=dev)[None, :,
-                                                                  None],
-                 slot[:, None, :]] = vals
-            a_acc[idx] = a_acc[idx] + wgc.sum(dim=1)
-            pairs += int(tl.real_copies(p, idx).sum())
-    return grads, pairs * settings.tile_h * settings.tile_w
+        tl = _mirror_tiles(settings, attrs, tile_lists, counts, sel)
+        pairs += backward_rows(settings, tl, t_chk[tl.out_row],
+                               g_out[tl.out_row], grads[b0:b0 + sel.numel()])
+    return grads, pairs

@@ -1,17 +1,33 @@
-"""Raster settings for a model and frame size, and the per-render record
-(port of ``make_raster_settings`` and ``RenderResults``,
-gsvc_tpu/render/pipeline.py)."""
+"""Raster settings for a model and frame size, the per-render record, and
+single-view frame rendering (port of gsvc_tpu/render/pipeline.py:
+``make_raster_settings``, ``RenderResults``, ``render_frame``,
+``render_frame_averaged``; and of the single-view drop-ins
+``rasterize_pallas_train`` / ``rasterize_pallas``,
+gsvc_tpu/render/pallas_splat.py:1195, :1223).
+
+One view of one frame: projection and binning, then the single-view
+composite (kernels B5f/B5b on CUDA tensors, their plain versions on CPU
+tensors).  The training step and the decoder use the batched paths of
+``render/batched.py``; these serve tests and evaluation.
+"""
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from gsvc_tpu_torch.models.gaussians import (
-    GaussianConfig, GeneratedGaussians, RatePack,
+    GaussianConfig, GeneratedGaussians, GenerateMode, ModelState, RatePack,
+    generate_neural_gaussians, window_for_frame,
 )
-from gsvc_tpu_torch.render.splat import RasterSettings
+from gsvc_tpu_torch.render.splat import (
+    RasterOutput, RasterSettings, _bin_gaussians, assemble_views,
+    gather_tile_planes, project_gaussians, tile_harmful_overflow,
+)
+from gsvc_tpu_torch.render.tile import (
+    composite_tiles_inference, tile_composite,
+)
 
 
 class RenderResults(NamedTuple):
@@ -49,3 +65,99 @@ def make_raster_settings(cfg: GaussianConfig, image_height: int,
         chunk=chunk, tiles_per_gaussian=tiles_per_gaussian,
         copy_budget_factor=copy_budget_factor, bg=bg,
         matmul_dtype=matmul_dtype)
+
+
+def _rasterize(composite, xyz, color, opacity, scaling, rot, valid,
+               frame_z, x_min, y_min, scale, settings, flip, means2d):
+    proj = project_gaussians(xyz, scaling, rot, valid, frame_z, x_min,
+                             y_min, scale, settings, flip=flip,
+                             means2d=means2d)
+    opacity = torch.where(proj.valid[:, None], opacity,
+                          torch.zeros_like(opacity))
+    tile_lists, counts, dropped, overflow, n_rendered = _bin_gaussians(
+        proj, settings)
+    planes = gather_tile_planes(proj, opacity, color, tile_lists)
+    imgs, ts = assemble_views(settings, composite(settings, planes, counts))
+    return RasterOutput(
+        image=imgs[0], transmittance=ts[0], radii=proj.radius,
+        num_rendered=n_rendered, overflow=overflow,
+        harmful_overflow=tile_harmful_overflow(settings, ts[0].detach(),
+                                               dropped))
+
+
+def rasterize_pallas_train(xyz, color, opacity, scaling, rot, valid,
+                           frame_z: float, x_min: float, y_min: float,
+                           scale: float, settings: RasterSettings,
+                           flip: bool = False, means2d=None) -> RasterOutput:
+    """Differentiable single-view rasterization: projection and binning,
+    then ``tile_composite`` (B5f/B5b); the plane gradients reach the
+    gaussians (and ``means2d``) through the gather's autograd."""
+    return _rasterize(tile_composite, xyz, color, opacity, scaling, rot,
+                      valid, frame_z, x_min, y_min, scale, settings, flip,
+                      means2d)
+
+
+def rasterize_pallas(xyz, color, opacity, scaling, rot, valid,
+                     frame_z: float, x_min: float, y_min: float,
+                     scale: float, settings: RasterSettings,
+                     flip: bool = False) -> RasterOutput:
+    """Forward-only single-view rasterization (B5f, no checkpoints)."""
+    return _rasterize(composite_tiles_inference, xyz, color, opacity,
+                      scaling, rot, valid, frame_z, x_min, y_min, scale,
+                      settings, flip, None)
+
+
+def render_frame(state: ModelState, cfg: GaussianConfig, frame_z: float,
+                 x_min: float, y_min: float, scale: float,
+                 settings: RasterSettings, window_cap: int,
+                 mode: GenerateMode = GenerateMode.FULL_PRECISION,
+                 generator: Optional[torch.Generator] = None,
+                 flip: bool = False, decoded: bool = False, means2d=None,
+                 rasterizer: str = "pallas_train") -> RenderResults:
+    """Render one frame plane in one view direction (``flip=True``: the
+    reversed view, whose image the caller x-flips before averaging).
+
+    ``rasterizer`` "pallas" composites forward-only (B5f); every other
+    ported name ("", "jnp", "pallas_train") differentiably (B5f/B5b)."""
+    if rasterizer not in ("", "jnp", "pallas", "pallas_train"):
+        raise NotImplementedError(
+            f"rasterizer {rasterizer!r} is not ported (pallas_stream is "
+            f"kernel pair B6)")
+    start, in_window = window_for_frame(state, cfg, frame_z, window_cap)
+    gss = generate_neural_gaussians(
+        state, cfg, frame_z=frame_z, cam_z=frame_z, window_start=start,
+        in_window=in_window, cap=window_cap, mode=mode, decoded=decoded,
+        generator=generator)
+    args = (gss.xyz, gss.color, gss.opacity, gss.scaling, gss.rot,
+            gss.valid, frame_z, x_min, y_min, scale, settings)
+    if rasterizer == "pallas":
+        out = rasterize_pallas(*args, flip=flip)
+    else:
+        out = rasterize_pallas_train(*args, flip=flip, means2d=means2d)
+    return RenderResults(
+        image=out.image, transmittance=out.transmittance,
+        window_start=start, in_window=in_window, radii=out.radii,
+        visibility_filter=out.radii > 0, selection_mask=gss.valid,
+        neural_opacity=gss.neural_opacity, scaling=gss.scaling,
+        num_rendered=out.num_rendered, overflow=out.overflow,
+        rate=gss.rate, gaussians=gss,
+        harmful_overflow=out.harmful_overflow)
+
+
+def render_frame_averaged(state: ModelState, cfg: GaussianConfig,
+                          frame_z: float, x_min: float, y_min: float,
+                          scale: float, settings: RasterSettings,
+                          window_cap: int,
+                          mode: GenerateMode = GenerateMode.FULL_PRECISION,
+                          generator: Optional[torch.Generator] = None,
+                          decoded: bool = False):
+    """Forward and x-flipped reversed view, averaged (two generations and
+    two composites).  Returns (image [3, H, W], forward RenderResults,
+    flip RenderResults)."""
+    rf = render_frame(state, cfg, frame_z, x_min, y_min, scale, settings,
+                      window_cap, mode, generator, flip=False,
+                      decoded=decoded)
+    rb = render_frame(state, cfg, frame_z, x_min, y_min, scale, settings,
+                      window_cap, mode, generator, flip=True,
+                      decoded=decoded)
+    return (rf.image + rb.image.flip(-1)) / 2.0, rf, rb

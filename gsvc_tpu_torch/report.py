@@ -86,3 +86,8 @@ def evaluate_video(state: ModelState, cfg: GaussianConfig,
             result["ms_ssim"] = float(np.mean(msssims))
     return result
 
+
+
+def bits_per_pixel(total_bits: float, width: int, height: int,
+                   num_frames: int) -> float:
+    return total_bits / (width * height * num_frames)

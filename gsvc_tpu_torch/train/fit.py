@@ -53,8 +53,9 @@ from gsvc_tpu_torch.train.trainer import (
 )
 
 # rasterizer settings the port serves: all name the same compositing
-# function (the mirror kernels); "pallas_stream" is kernel pair B6
-_MIRROR_RASTERIZERS = ("", "jnp", "pallas", "pallas_train")
+# function (kernels B1/B2 at tile-aligned widths, B5f/B5b at others);
+# "pallas_stream" is kernel pair B6, not ported yet
+_PORTED_RASTERIZERS = ("", "jnp", "pallas", "pallas_train")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -111,10 +112,12 @@ class GOPFitter:
         # a CPU generator (below), the same on every device
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
-        if cfg.pipeline.rasterizer not in _MIRROR_RASTERIZERS:
+        if cfg.pipeline.rasterizer not in _PORTED_RASTERIZERS:
             raise NotImplementedError(
                 f"rasterizer {cfg.pipeline.rasterizer!r} is not ported; the "
-                f"port trains through the mirror kernels B1/B2")
+                f"port trains through kernels B1/B2 (tile-aligned widths) "
+                f"and B5f/B5b (other widths); pallas_stream is kernel "
+                f"pair B6")
         if cfg.pipeline.mesh_shape:
             raise NotImplementedError("the port fits on one device; "
                                       "pipeline.mesh_shape is not ported")
@@ -564,7 +567,8 @@ class GOPFitter:
     @torch.no_grad()
     def evaluate(self, mode: GenerateMode = GenerateMode.FULL_PRECISION,
                  frames: Optional[list] = None, decoded: bool = False):
-        """Mean PSNR of the fwd/flip-averaged frames (kernel B4).  The
+        """Mean PSNR of the fwd/flip-averaged frames (kernel B4; B5f at a
+        width that is not a multiple of ``tile_w``).  The
         noise-quantised phases are evaluated without noise: QUANTIZED_NOISE
         in FULL_PRECISION, ENTROPY with STE rounding (STE_ENTROPY)."""
         if mode == GenerateMode.QUANTIZED_NOISE:

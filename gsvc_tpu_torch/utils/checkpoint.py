@@ -18,7 +18,9 @@ from __future__ import annotations
 
 import dataclasses
 import io
+import os
 import pickle
+from typing import Dict
 
 import numpy as np
 import torch
@@ -140,3 +142,15 @@ def load_checkpoint(path: str, fitter) -> int:
                                      fitter.settings.copy_budget_factor))
     fitter._build_step()
     return p["iteration"]
+
+
+def save_streams(path_dir: str, streams: Dict[str, bytes]) -> int:
+    """Write each stream to its own file of ``path_dir``; returns the
+    total bytes (gsvc_tpu/utils/checkpoint.py:103)."""
+    os.makedirs(path_dir, exist_ok=True)
+    total = 0
+    for name, data in streams.items():
+        with open(os.path.join(path_dir, name), "wb") as f:
+            f.write(data)
+        total += len(data)
+    return total

@@ -16,6 +16,10 @@ suffix as the chunk's sum minus a running prefix, the plain version by a
 reverse cumsum, and 1/(1 - alpha) amplifies that rounding up to 100x;
 the pixel sums are also taken in other orders.
 
+Single-view kernels B5f/B5b (widths that are not a multiple of tile_w):
+the forward and checkpoints to 2 T_EPS, the gradients to 2e-3 of each
+attribute's largest magnitude, for the reasons given for B1/B2.
+
 Hash-grid kernels B3f/B3b (at the fixture's spec, F = 8, 12 3D + 4 2D
 levels, N = 25k and 150k queries): the forward equals the plain version
 to 1e-6 (both round the cell, the corner sums and the division alike);
@@ -32,8 +36,10 @@ import torch
 
 from gsvc_tpu_torch.ops import hashgrid_kernels as hk
 from gsvc_tpu_torch.ops.hashgrid import make_mix_grid_spec
-from gsvc_tpu_torch.render import bidir, mirror
-from gsvc_tpu_torch.render.splat import T_EPS, RasterSettings
+from gsvc_tpu_torch.render import bidir, mirror, tile
+from gsvc_tpu_torch.render.splat import (
+    T_EPS, RasterSettings, gather_tile_planes_rows,
+)
 
 SMALL = RasterSettings(image_height=40, image_width=48, threshold=0.15,
                        tile_h=8, tile_w=16, gaussian_cap=64, chunk=16,
@@ -185,6 +191,77 @@ def test_mirror_views_do_not_collide():
         assert scale > 0
         err = float((m2d.grad[view] - dm_p[view]).abs().max())
         assert err <= BWD_REL * scale, (view, err, scale)
+
+
+SMALL_NARROW = RasterSettings(image_height=40, image_width=40, threshold=0.15,
+                              tile_h=8, tile_w=16, gaussian_cap=64, chunk=16,
+                              tiles_per_gaussian=32)
+TRAIN_NARROW = RasterSettings(image_height=32, image_width=360, threshold=0.1,
+                              tile_h=8, tile_w=128, gaussian_cap=1024,
+                              chunk=128, tiles_per_gaussian=32)
+
+
+def _planes(settings, seed, opacity_hi, n_views=4):
+    """Seeded tiles of ``n_views`` views as the single-view composite's
+    planes 9 x [V*T, cap] and counts [V*T] (CUDA tensors)."""
+    attrs, lists, counts = _frames(settings, seed, opacity_hi, n_views)
+    views = [gather_tile_planes_rows(attrs[v], lists[v])
+             for v in range(n_views)]
+    return (tuple(torch.cat([p[i] for p in views]).contiguous()
+                  for i in range(9)), counts.reshape(-1).contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["small", "train"])
+@pytest.mark.parametrize("opacity_hi", [0.1, 0.99])
+def test_tile_kernels_match_plain(shape, opacity_hi):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    settings = SMALL_NARROW if shape == "small" else TRAIN_NARROW
+    planes, counts = _planes(settings, 5, opacity_hi)
+    before = tile.tile_forward.launches
+    out_k, chk_k = tile.tile_forward(settings, planes, counts)
+    out_i, none = tile.tile_forward(settings, planes, counts,
+                                    save_tchk=False)
+    assert tile.tile_forward.launches == before + 2 and none is None
+    out_p, chk_p, pairs = tile.tile_fwd_plain(settings, planes, counts)
+    torch.cuda.synchronize()
+    assert pairs > 0 and torch.isfinite(out_k).all()
+    torch.testing.assert_close(out_k, out_p, atol=2 * T_EPS, rtol=0)
+    torch.testing.assert_close(chk_k, chk_p, atol=2 * T_EPS, rtol=0)
+    torch.testing.assert_close(out_i, out_k, atol=0, rtol=0)
+
+    g = torch.randn(out_p.shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(6))
+    before = tile.tile_backward.launches
+    gr_k = tile.tile_backward(settings, planes, counts, chk_p, g)
+    assert tile.tile_backward.launches == before + 1
+    gr_p, _ = tile.tile_bwd_plain(settings, planes, counts, chk_p, g)
+    torch.cuda.synchronize()
+    assert torch.isfinite(gr_k).all()
+    _check_bwd(gr_k, gr_p)
+
+
+@pytest.mark.cuda
+def test_tile_composite_autograd_matches_plain():
+    """``tile_composite`` on the card (B5f/B5b) against the same autograd
+    function on CPU copies (the plain versions): outputs and the nine
+    plane gradients."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    planes, counts = _planes(SMALL_NARROW, 8, 0.6)
+    outs, grads = [], []
+    for dev in ("cuda", "cpu"):
+        p = tuple(x.to(dev).clone().requires_grad_(True) for x in planes)
+        out = tile.tile_composite(SMALL_NARROW, p, counts.to(dev))
+        g = torch.randn(out.shape,
+                        generator=torch.Generator().manual_seed(7))
+        out.backward(g.to(dev))
+        outs.append(out.detach().cpu())
+        grads.append(torch.stack([x.grad.cpu() for x in p], dim=1))
+    torch.testing.assert_close(outs[0], outs[1], atol=2 * T_EPS, rtol=0)
+    assert float(grads[1].abs().max()) > 0
+    _check_bwd(grads[0], grads[1])
 
 
 # the fixture's hash grid (artifacts/rd_r5/realtex_0.004/cfg_args.yaml)

@@ -368,16 +368,15 @@ print(json.dumps({"modules": len(mods), "bad": bad, "res": res}))
 """
 
 
-def test_cli_fits_on_cpu_with_jax_blocked(tmp_path):
-    """Every module of the port imports with JAX blocked, and the train
-    CLI fits a tiny GOP on the CPU, checkpoints and writes results."""
+def _cli_inputs(tmp_path, frames):
+    """PNG frames and a config of the tiny model with a six-iteration
+    four-phase schedule (a densify epoch at iteration 4)."""
     src = tmp_path / "frames"
     src.mkdir()
-    for i, fr in enumerate(_video_u8()):
+    for i, fr in enumerate(frames):
         Image.fromarray(fr).save(src / f"f_{i:03d}.png")
     cfg = tmp_path / "small.yaml"
     _, pcfg = _configs()
-    # all four phases with a densify epoch at iteration 4
     pcfg.optimization.iterations = 6
     pcfg.optimization.full_precision_training_total = 2
     pcfg.optimization.quantized_training_total = 1
@@ -388,17 +387,31 @@ def test_cli_fits_on_cpu_with_jax_blocked(tmp_path):
     pcfg.optimization.update_interval = 4
     from gsvc_tpu_torch.config import save_config
     save_config(pcfg, str(cfg))
-    out = tmp_path / "out"
+    return src, cfg
+
+
+def _run_blocked_cli(tmp_path, args):
+    import json
     res = subprocess.run(
-        [sys.executable, "-c", _BLOCKED_FIT, str(REPO), "--source_path",
-         str(src), "--model_path", str(out), "--config_path", str(cfg),
-         "--device", "cpu", "--skip_codec", "--checkpoint_iterations", "2"],
+        [sys.executable, "-c", _BLOCKED_FIT, str(REPO), *args],
         capture_output=True, text=True, timeout=600,
         env={"PATH": "/usr/bin:/bin", "HOME": str(tmp_path)})
     assert res.returncode == 0, res.stderr[-3000:]
-    import json
     got = json.loads(res.stdout.strip().splitlines()[-1])
     assert got["bad"] == [] and got["modules"] >= 30
+    return got
+
+
+def test_cli_fits_on_cpu_with_jax_blocked(tmp_path):
+    """Every module of the port imports with JAX blocked, and the train
+    CLI fits a tiny GOP on the CPU, checkpoints and writes results."""
+    import json
+    src, cfg = _cli_inputs(tmp_path, _video_u8())
+    out = tmp_path / "out"
+    got = _run_blocked_cli(tmp_path, [
+        "--source_path", str(src), "--model_path", str(out),
+        "--config_path", str(cfg), "--device", "cpu", "--skip_codec",
+        "--checkpoint_iterations", "2"])
     assert got["res"]["iterations"] == 6 and np.isfinite(
         got["res"]["fit_psnr"])
     assert (out / "chkpnt_final.pkl").exists()
@@ -406,11 +419,58 @@ def test_cli_fits_on_cpu_with_jax_blocked(tmp_path):
     assert json.loads((out / "results.json").read_text()) == got["res"]
 
 
-def test_cli_requires_skip_codec(tmp_path):
+# the keys of the JAX train CLI's results.json on the single-GOP path
+# (gsvc_tpu/cli/train.py main and _codec_eval; tests/test_torch_encode.py
+# holds the port's _codec_eval keys to JAX's at run time)
+JAX_RESULT_KEYS = {"fit_psnr", "iterations", "n_anchors", "bpp",
+                   "encode_seconds", "decode_seconds", "decoded_psnr",
+                   "decoded_ssim", "decoded_ms_ssim", "decoded_lpips",
+                   "decode_fps", "size_mb"}
+
+
+@pytest.mark.parametrize("width", [32, 40], ids=["aligned", "unaligned"])
+def test_cli_encodes_on_cpu_with_jax_blocked(tmp_path, width):
+    """Without ``--skip_codec`` the train CLI fits, estimates, encodes,
+    saves, decodes and evaluates a tiny GOP on the CPU with JAX blocked,
+    at a width that is a multiple of ``tile_w`` (16) and at one that is
+    not: ``bitstreams/`` in the JAX package's format and ``results.json``
+    with JAX's keys (plus ``device``)."""
+    import json
+    import pickle
+    import zlib
+    frames = np.round(synthetic_video(t=4, h=24, w=width) * 255).astype(
+        np.uint8)
+    src, cfg = _cli_inputs(tmp_path, frames)
+    out = tmp_path / "out"
+    got = _run_blocked_cli(tmp_path, [
+        "--source_path", str(src), "--model_path", str(out),
+        "--config_path", str(cfg), "--device", "cpu", "--eval_stride", "2"])
+    res = json.loads((out / "results.json").read_text())
+    assert res == got["res"]
+    assert set(res) == JAX_RESULT_KEYS | {"device", "eval_stride",
+                                          "eval_frames"}
+    assert res["bpp"] > 0 and np.isfinite(res["decoded_psnr"])
+    assert res["eval_frames"] == 2 and res["decoded_lpips"] is None
+    bs = out / "bitstreams"
+    total = sum(p.stat().st_size for p in bs.iterdir())
+    assert res["size_mb"] == total / 2 ** 20
+    assert res["bpp"] == total * 8 / (width * 24 * 4)
+    meta = zlib.decompress((bs / "meta.bin").read_bytes())
+    assert b"gsvc_tpu.codec.bitstream" in meta
+    from gsvc_tpu.codec.bitstream import EncodeMeta as JaxMeta
+    jm = pickle.loads(meta)
+    assert isinstance(jm, JaxMeta) and jm.video_info == {
+        "width": width, "height": 24, "num_frames": 4}
+    log = (out / "output.log").read_text()
+    assert "estimated bits: total=" in log and "encoded " in log
+
+
+def test_cli_refuses_unported_options(tmp_path):
     from gsvc_tpu_torch.cli.train import main
 
-    with pytest.raises(NotImplementedError, match="skip_codec"):
-        main(["--model_path", str(tmp_path), "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="mesh"):
         main(["--model_path", str(tmp_path), "--device", "cpu",
               "--skip_codec", "--mesh", "dp=2,sp=1"])
+    with pytest.raises(NotImplementedError, match="LPIPS"):
+        main(["--model_path", str(tmp_path), "--device", "cpu",
+              "--lpips_weights", "proxy"])
