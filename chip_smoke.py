@@ -72,7 +72,27 @@
    encode and decode seconds, the size, bpp, the rate estimate and the
    decoded PSNR beside the fitter's STE evaluation of the state before
    the encode (none of them gated).
-9. Narrow-width phase: the 600 frames resized on the card to 854x480
+9. Stream phase (the stream rasterizer, kernels B6f/B6b):
+   (a) B6f/B6b (``stream_forward`` / ``stream_backward``) against their
+   plain versions on the synthetic 1080p tiles of step 3 laid out as the
+   chunk-aligned copy stream, and on the fitted state's pair 299-300
+   binned with copy_budget_factor 0 and 8 (``bin_gaussians_stream``);
+   (b) on the same copies B6f against B1 and B6b against B2 (both
+   scattered to the gaussians, with per-view means2d), kernel to kernel,
+   and their times against their bounds and against B1/B2's; then (d)
+   ``gsvc_tpu_torch.cli.stream.main`` on a checkpoint of the fitted state
+   with --set pipeline.rasterizer=pallas_stream --set
+   pipeline.copy_budget_factor=8 and GSVC_RASTERIZER=pallas_stream (the
+   CLI's dataset is handed the 1080p frames from memory): streaming
+   encode, save, decode and the evaluation of all 600 frames, which must
+   launch B6f once per frame and no other composite, give z_slices > 1
+   and a decoded PSNR within 0.01 dB of the codec phase's B4 evaluation;
+   then (c) ``GOPFitter.fit`` with the stream rasterizer and
+   copy_budget_factor 8 on the 1080p frames, 12 steps of the narrow
+   phase's schedule: B6f and B6b once per step and no other composite,
+   finite losses, the per-step overflow and the per-phase medians; and
+   the same fit (seed, frames, schedule) through B1/B2 for comparison.
+10. Narrow-width phase: the 600 frames resized on the card to 854x480
    (DAVIS 2017 480p; 854 is not a multiple of 128) as PNGs, then
    ``gsvc_tpu_torch.cli.train.main`` without --skip_codec on them with
    the fixture's cfg_args.yaml and a 12-step four-phase schedule
@@ -83,7 +103,7 @@
    losses must be finite, and results.json must hold bpp > 0 and a finite
    decoded PSNR.  Then B5f/B5b against their plain versions on the
    fitted state's pair 299-300 (its four views' planes), timed.
-10. Prints the kernel table as one JSON line, then the result line.
+11. Prints the kernel table as one JSON line, then the result line.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 Frames are written nowhere; the checkpoint goes to a temporary directory.
@@ -483,9 +503,10 @@ class StepTimer:
     """CUDA events at the train step's marks (gsvc_tpu_torch.train.
     trainer.make_step_body): start, b3f_start, b3f_end (the context query
     of the entropy phases), the composite's forward marks (b1_start,
-    b1_end at tile-aligned widths; b5f_start, b5f_end at others),
-    loss_end, the composite's backward marks (b2_start, b2_end or
-    b5b_start, b5b_end), b3b_start, b3b_end, backward_end, adam_end; and
+    b1_end at tile-aligned widths, b6f_start, b6f_end with the stream
+    rasterizer; b5f_start, b5f_end at others), loss_end, the composite's
+    backward marks (b2_start, b2_end, b6b_start, b6b_end or b5b_start,
+    b5b_end), b3b_start, b3b_end, backward_end, adam_end; and
     the hash-grid kernels' launch counts at start and adam_end."""
 
     def __init__(self, hk):
@@ -513,16 +534,18 @@ class StepTimer:
 
     def split(self):
         """Per step: {phase: ms}; the composite's columns are B1 and
-        B2+scatter at tile-aligned widths, B5f and B5b at others (where
-        the gather's transpose falls in the rest of the backward)."""
+        B2+scatter at tile-aligned widths (B6f and B6b+scatter with the
+        stream rasterizer), B5f and B5b at others (where the gather's
+        transpose falls in the rest of the backward)."""
         torch.cuda.synchronize()
         rows = []
         for e in self.steps:
             def ms(a, b, e=e):
                 return e[a].elapsed_time(e[b]) if a in e else 0.0
-            f, b = (("b1", "b2") if "b1_start" in e else ("b5f", "b5b"))
-            fname, bname = (("B1", "B2+scatter") if f == "b1"
-                            else ("B5f", "B5b"))
+            f, b, fname, bname = (
+                ("b1", "b2", "B1", "B2+scatter") if "b1_start" in e
+                else ("b6f", "b6b", "B6f", "B6b+scatter")
+                if "b6f_start" in e else ("b5f", "b5b", "B5f", "B5b"))
             bwd = ms(f"{b}_start", f"{b}_end")
             b3f = ms("b3f_start", "b3f_end")
             b3b = ms("b3b_start", "b3b_end")
@@ -552,22 +575,21 @@ def phase_of(it: int, phases=PHASES) -> str:
     return "STE_ENTROPY"
 
 
-def training_pair_inputs(fitter, i1: int, flips=(False,)):
-    """The composite's inputs for the frame pair (i1, i1 + 1) of the
-    fitted state, built as render_pair builds them (FULL_PRECISION): per
-    frame one view for the mirror composite (``flips`` (False,)), or the
-    forward and flip views each projected and binned on its own for the
-    single-view composite ((False, True)).  Returns (attrs [V, M, 9],
-    lists [V, T, cap], counts [V, T])."""
+def pair_views(fitter, i1: int, flips=(False,)):
+    """The projected views of the frame pair (i1, i1 + 1) of the fitted
+    state, as render_pair builds them (FULL_PRECISION): per frame one view
+    for the mirror and stream composites (``flips`` (False,)), or the
+    forward and flip views each projected on its own for the single-view
+    composite ((False, True)).  Returns [(projection, attribute rows)]."""
     from gsvc_tpu_torch.models.gaussians import (
         GenerateMode, generate_neural_gaussians, window_for_frame,
     )
     from gsvc_tpu_torch.render.splat import (
-        _bin_gaussians, attr_rows_from_proj, project_gaussians,
+        attr_rows_from_proj, project_gaussians,
     )
 
     d, st, s = fitter.dataset, fitter.state, fitter.settings
-    attrs, lists, counts = [], [], []
+    views = []
     with torch.no_grad():
         for i in (i1, i1 + 1):
             z = float(fitter.frame_zs[i])
@@ -580,14 +602,25 @@ def training_pair_inputs(fitter, i1: int, flips=(False,)):
                 proj = project_gaussians(gss.xyz, gss.scaling, gss.rot,
                                          gss.valid, z, d.x_min, d.y_min,
                                          d.scale, s, flip=flip)
-                tl, cnt, _, _, _ = _bin_gaussians(proj, s)
                 op = torch.where(proj.valid[:, None], gss.opacity,
                                  torch.zeros_like(gss.opacity))
-                attrs.append(attr_rows_from_proj(proj, op, gss.color))
-                lists.append(tl)
-                counts.append(cnt)
-    return (torch.stack(attrs).contiguous(), torch.stack(lists),
-            torch.stack(counts))
+                views.append((proj, attr_rows_from_proj(proj, op,
+                                                        gss.color)))
+    return views
+
+
+def training_pair_inputs(fitter, i1: int, flips=(False,), settings=None):
+    """The tile composites' inputs for the frame pair (i1, i1 + 1) of the
+    fitted state (``pair_views``), binned with ``settings`` (default the
+    fitter's).  Returns (attrs [V, M, 9], lists [V, T, cap], counts
+    [V, T])."""
+    from gsvc_tpu_torch.render.splat import _bin_gaussians
+
+    s = settings or fitter.settings
+    views = pair_views(fitter, i1, flips)
+    lists, counts = zip(*(_bin_gaussians(p, s)[:2] for p, _ in views))
+    return (torch.stack([a for _, a in views]).contiguous(),
+            torch.stack(lists), torch.stack(counts))
 
 
 def timed_densify(fitter, epochs: list):
@@ -1096,6 +1129,345 @@ def codec_phase(fitter, bidir, mirror, tile, hk):
                 psnr=ev["psnr"], psnr_ste=psnr_ste, launches=launches[0])
 
 
+# the stream rasterizer (B6f/B6b) over the compacted copy stream
+STREAM_SET = {"pipeline.rasterizer": "pallas_stream",
+              "pipeline.copy_budget_factor": 8}
+
+
+def stream_bounds(settings, bins, pairs_f, pairs_b):
+    """(B6f bound, B6b bound) on one stream: the live slots' nine rows and
+    the block counts read once; out4, the live blocks' checkpoints and
+    (backward) the live slots' two views' gradients written once; g_out,
+    out4's T row and the checkpoints read once; 25 / 49 FLOP per
+    evaluated (copy, pixel, view)."""
+    p_pix = settings.tile_h * settings.tile_w
+    live_slots = int((bins[0] >= 0).sum())
+    live_blocks = int((bins[1] >= 0).sum())
+    n_out = 2 * bins[3].numel()
+    rows = live_slots * 9 * 4 + nbytes(bins[3])
+    out4 = n_out * 4 * p_pix * 4
+    chk = 2 * live_blocks * p_pix * 4
+    fwd = bound_ms(rows + out4 + chk, pairs_f * FLOPS_PER_PAIR)
+    bwd = bound_ms(rows + n_out * p_pix * 4 + out4 + chk
+                   + 2 * live_slots * 9 * 4, pairs_b * FLOPS_PER_BWD_PAIR)
+    return fwd, bwd
+
+
+def stream_check(stream, mirror, settings, attrs, bins, lists, counts,
+                 label):
+    """(a) B6f (with and without checkpoints) and B6b against their plain
+    versions on one stream, and the scatter with and without per-view
+    means2d; (b) B6f against B1 and B6b (scattered) against B2 (scattered)
+    on the same copies, kernel to kernel.  Returns the errors, the
+    evaluated pairs and the plain version's outputs for timing."""
+    sids, m = bins[0], attrs.shape[1]
+    rows = stream.stream_rows(attrs, sids)
+    out_k, chk_k = stream.stream_fwd_cuda(settings, rows, *bins)
+    inf_k, _ = stream.stream_fwd_cuda(settings, rows, *bins,
+                                      save_tchk=False)
+    out_p, chk_p, pairs_f = stream.stream_fwd_plain(settings, rows, *bins)
+    torch.cuda.synchronize()
+    fwd_err = max(float((out_k - out_p).abs().max()),
+                  float((chk_k - chk_p).abs().max()),
+                  float((inf_k - out_p).abs().max()))
+    if not np.isfinite(fwd_err) or fwd_err > MAX_ABS_ERR:
+        raise AssertionError(f"{label}: B6f disagrees with its plain "
+                             f"version: {fwd_err} > {MAX_ABS_ERR}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    g_out = torch.randn(out_p.shape, generator=gen, device="cuda")
+    gr_k = stream.stream_bwd_cuda(settings, rows, *bins, out_p, chk_p,
+                                  g_out)
+    gr_p, pairs_b = stream.stream_bwd_plain(settings, rows, *bins, out_p,
+                                            chk_p, g_out)
+    torch.cuda.synchronize()
+    if not torch.isfinite(gr_k).all():
+        raise AssertionError(f"{label}: B6b gave non-finite gradients")
+    bwd_err = bwd_rel_err(gr_k, gr_p, 1)
+    bwd_abs = float((gr_k - gr_p).abs().max())
+    for per_view in (False, True):
+        da_k, dm_k = stream.scatter_stream_grads(gr_k, sids, m, per_view)
+        da_p, dm_p = stream.scatter_stream_grads(gr_p, sids, m, per_view)
+        bwd_err = max(bwd_err, bwd_rel_err(da_k, da_p, -1))
+        bwd_abs = max(bwd_abs, float((da_k - da_p).abs().max()))
+        if per_view:
+            diff = float((dm_k - dm_p).abs().max())
+            bwd_err = max(bwd_err, diff / max(float(dm_p.abs().max()),
+                                              1e-30))
+            bwd_abs = max(bwd_abs, diff)
+    if not np.isfinite(bwd_err) or bwd_err > BWD_REL_ERR:
+        raise AssertionError(f"{label}: B6b disagrees with its plain "
+                             f"version: {bwd_err} > {BWD_REL_ERR} of the "
+                             f"largest gradient")
+    # (b) the stream kernels against the mirror kernels, each pair on its
+    # own forward's checkpoints, both backwards scattered to the gaussians
+    out_1, chk_1 = mirror.mirror_fwd_cuda(settings, attrs, lists, counts)
+    gr_2 = mirror.mirror_bwd_cuda(settings, attrs, lists, counts, chk_1,
+                                  g_out)
+    gr_6 = stream.stream_bwd_cuda(settings, rows, *bins, out_k, chk_k,
+                                  g_out)
+    torch.cuda.synchronize()
+    vs_b1 = float((out_k - out_1).abs().max())
+    da_2, dm_2 = mirror.scatter_grads(settings, gr_2, lists, m, True)
+    da_6, dm_6 = stream.scatter_stream_grads(gr_6, sids, m, True)
+    vs_b2 = max(bwd_rel_err(da_6, da_2, -1),
+                float((dm_6 - dm_2).abs().max())
+                / max(float(dm_2.abs().max()), 1e-30))
+    if not (vs_b1 <= MAX_ABS_ERR and vs_b2 <= BWD_REL_ERR):
+        raise AssertionError(f"{label}: the stream kernels disagree with "
+                             f"B1/B2: out {vs_b1} (limit {MAX_ABS_ERR}), "
+                             f"gradients {vs_b2} of the largest (limit "
+                             f"{BWD_REL_ERR})")
+    live_blocks = int((bins[1] >= 0).sum())
+    log(f"{label}: {int((sids >= 0).sum())} live slots in {live_blocks} "
+        f"live blocks of {bins[1].numel()} ({int((bins[3] == 1).sum())} "
+        f"tiles of one block); B6f max |kernel - plain| {fwd_err:.3e} "
+        f"(limit {MAX_ABS_ERR:.0e}; out, t_chk and the checkpoint-free "
+        f"launch); B6b max |kernel - plain| / max |plain| {bwd_err:.3e} "
+        f"(limit {BWD_REL_ERR:.0e}; max |kernel - plain| {bwd_abs:.3e}; "
+        f"per-slot rows and the scatter with and without means2d); "
+        f"against B1 max |B6f - B1| {vs_b1:.3e}, against B2 (scattered, "
+        f"with means2d) {vs_b2:.3e} of the largest gradient")
+    return dict(fwd_err=fwd_err, bwd_abs=bwd_abs, pairs_f=pairs_f,
+                pairs_b=pairs_b, vs_b1=vs_b1, vs_b2=vs_b2,
+                aux=(rows, out_p, chk_p, g_out))
+
+
+def stream_times(stream, mirror, settings, attrs, bins, lists, counts, chk,
+                 label):
+    """Kernel and plain times of B6f and B6b on one stream against their
+    bounds, and B1/B2's kernel times on the same copies."""
+    rows, out_p, chk_p, g_out = chk["aux"]
+    f_ms = cuda_ms(lambda: stream.stream_fwd_cuda(settings, rows, *bins),
+                   10)
+    b_ms = cuda_ms(lambda: stream.stream_bwd_cuda(
+        settings, rows, *bins, out_p, chk_p, g_out), 5)
+    f_plain = cuda_ms(lambda: stream.stream_fwd_plain(settings, rows,
+                                                      *bins), 1)
+    b_plain = cuda_ms(lambda: stream.stream_bwd_plain(
+        settings, rows, *bins, out_p, chk_p, g_out), 1)
+    _, chk_1 = mirror.mirror_fwd_cuda(settings, attrs, lists, counts)
+    b1_ms = cuda_ms(lambda: mirror.mirror_fwd_cuda(settings, attrs, lists,
+                                                   counts), 10)
+    b2_ms = cuda_ms(lambda: mirror.mirror_bwd_cuda(
+        settings, attrs, lists, counts, chk_1, g_out), 5)
+    fb, bb = stream_bounds(settings, bins, chk["pairs_f"], chk["pairs_b"])
+    log(f"{label}: B6f kernel {f_ms:.4f} ms (B1 {b1_ms:.4f}), plain "
+        f"{f_plain:.3f} ms, bound {fb[0]:.4f} ms ({fb[1]}; "
+        f"{chk['pairs_f']} pairs); B6b kernel {b_ms:.4f} ms (B2 "
+        f"{b2_ms:.4f}), plain {b_plain:.3f} ms, bound {bb[0]:.4f} ms "
+        f"({bb[1]}; {chk['pairs_b']} pairs)")
+    return (dict(ms=f_ms, plain_ms=f_plain, bound_ms=fb[0], bound_by=fb[1],
+                 b1_ms=b1_ms),
+            dict(ms=b_ms, plain_ms=b_plain, bound_ms=bb[0], bound_by=bb[1],
+                 b2_ms=b2_ms))
+
+
+def stream_kernel_phase(stream, mirror, fitter):
+    """B6f/B6b against their plain versions and against B1/B2: on the
+    synthetic 1080p tiles of the mirror-kernel phase (as a stream), and on
+    the fitted state's pair 299-300 with copy_budget_factor 0 and 8.
+    Returns (B6f numbers, B6b numbers) on the factor-8 pair."""
+    import dataclasses
+
+    from gsvc_tpu_torch.render.splat import (
+        _bin_gaussians, _sorted_copy_stream, bin_gaussians_stream,
+        stream_blocks_max,
+    )
+
+    s0 = fitter.settings
+    attrs, lists, counts = synthetic_frames(s0, seed=1, n_frames=2,
+                                            device="cuda")
+    bins = stream.stream_from_tile_lists(
+        s0, lists, counts, stream_blocks_max(s0, attrs.shape[1]))
+    syn = stream_check(stream, mirror, s0, attrs, bins, lists, counts,
+                       "stream phase (B6f/B6b, synthetic 1080p)")
+    stream_times(stream, mirror, s0, attrs, bins, lists, counts, syn,
+                 "stream phase (B6f/B6b, synthetic 1080p)")
+    del attrs, lists, counts, bins, syn
+    errs = []
+    for factor in (0, 8):
+        s = dataclasses.replace(s0, copy_budget_factor=factor)
+        views = pair_views(fitter, 299)
+        attrs = torch.stack([a for _, a in views]).contiguous()
+        lists, counts = (torch.stack(x) for x in zip(
+            *(_bin_gaussians(p, s)[:2] for p, _ in views)))
+        sbs = [bin_gaussians_stream(p, s) for p, _ in views]
+        bins = stream.concat_stream_bins(sbs, s)
+        label = (f"stream phase (frames 299-300, copy_budget_factor "
+                 f"{factor})")
+        budget = sum(int(_sorted_copy_stream(p, s)[3]) for p, _ in views)
+        log(f"{label}: B_MAX {bins[1].numel() // 2} blocks per frame, "
+            f"overflow {sum(int(sb.overflow) for sb in sbs)} of which "
+            f"budget_dropped {budget}")
+        chk = stream_check(stream, mirror, s, attrs, bins, lists, counts,
+                           label)
+        errs.append(chk)
+        if factor == 8:
+            b6f, b6b = stream_times(stream, mirror, s, attrs, bins, lists,
+                                    counts, chk, label)
+    b6f["max_abs_err"] = max(c["fwd_err"] for c in errs)
+    b6b["max_abs_err"] = max(c["bwd_abs"] for c in errs)
+    return b6f, b6b
+
+
+def stream_cli_phase(ckpt, frames, want_psnr, counters):
+    """``gsvc_tpu_torch.cli.stream.main`` on the training phase's
+    checkpoint with ``--set pipeline.rasterizer=pallas_stream --set
+    pipeline.copy_budget_factor=8`` and ``GSVC_RASTERIZER=pallas_stream``:
+    the frames come from memory (the CLI's dataset class is given the
+    1080p frames) and its evaluation is counted.  Requires z_slices > 1,
+    one B6f launch per frame and no other composite, and the decoded PSNR
+    within 0.01 dB of the codec phase's B4 evaluation of the same state.
+    Returns (the results, B6f launches)."""
+    import os
+
+    import gsvc_tpu_torch.framecube.frame as frame_mod
+    import gsvc_tpu_torch.report as report
+    from gsvc_tpu_torch.cli import stream as cli
+
+    names = [n for n, _ in counters]
+
+    def counts():
+        return tuple(c.launches for _, c in counters)
+
+    evals = []
+    orig = (frame_mod.FrameCubeDataset, report.evaluate_video,
+            os.environ.get("GSVC_RASTERIZER"))
+
+    def dataset(*_a, **_k):
+        return orig[0](images=frames)
+
+    def evaluate_video(*a, **k):
+        c0 = counts()
+        r = orig[1](*a, **k)
+        evals.append((r["num_frames"], a[2].copy_budget_factor,
+                      tuple(b - a_ for a_, b in zip(c0, counts()))))
+        return r
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="gsvc_smoke_stream_"))
+    argv = ["--model_path", str(tmp / "out"), "--config_path",
+            str(FIXTURE_DIR / "cfg_args.yaml"), "--checkpoint", str(ckpt)]
+    for k, v in STREAM_SET.items():
+        argv += ["--set", f"{k}={v}"]
+    frame_mod.FrameCubeDataset, report.evaluate_video = dataset, \
+        evaluate_video
+    os.environ["GSVC_RASTERIZER"] = "pallas_stream"
+    try:
+        for _, c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        total = counts()
+    finally:
+        frame_mod.FrameCubeDataset, report.evaluate_video = orig[:2]
+        if orig[2] is None:
+            os.environ.pop("GSVC_RASTERIZER")
+        else:
+            os.environ["GSVC_RASTERIZER"] = orig[2]
+    log(f"stream CLI phase: cli.stream.main in {wall:.2f} s wall: results "
+        f"{json.dumps(res)}")
+    log(f"stream CLI phase: launches {names} in all {total}; per "
+        f"evaluation (frames, the evaluating fitter's copy_budget_factor "
+        f"after the checkpoint, launches) {evals}; decoded PSNR "
+        f"{res['psnr']:.4f} dB against {want_psnr:.4f} dB through B4 (codec "
+        f"phase, flat bitstream)")
+    n = len(frames)
+    want = tuple(n if name == "B6f" else 0 for name in names)
+    if len(evals) != 1 or evals[0][0] != n or evals[0][2] != want \
+            or total != want:
+        raise AssertionError(f"stream CLI launches {total}, per evaluation "
+                             f"{evals}: expected B6f once per frame ({n}) "
+                             f"and nothing else")
+    if not res["z_slices"] > 1:
+        raise AssertionError(f"stream CLI: {res['z_slices']} z-slices")
+    if not abs(res["psnr"] - want_psnr) <= 0.01:
+        raise AssertionError(f"stream CLI: decoded PSNR {res['psnr']} is "
+                             f"not within 0.01 dB of B4's {want_psnr}")
+    return res, total[names.index("B6f")]
+
+
+def short_fit_phase(frames, hk, counters, overrides, kernels, label):
+    """GOPFitter.fit on the 1080p frames with the fixture's model, the
+    narrow phase's 12-step four-phase schedule (densify epochs from step
+    4) and ``overrides``: the stream rasterizer with copy_budget_factor 8
+    (STREAM_SET), and, for comparison on the same seed and frames, the
+    mirror rasterizer.  The launch counts are read per step: the two
+    ``kernels`` once each and no other composite.  Returns (their
+    launches, the per-phase medians)."""
+    from gsvc_tpu_torch.config import load_config
+    from gsvc_tpu_torch.framecube.frame import FrameCubeDataset
+    from gsvc_tpu_torch.train.fit import GOPFitter
+
+    names = [n for n, _ in counters]
+
+    def counts():
+        return tuple(c.launches for _, c in counters)
+
+    cfg = load_config(str(FIXTURE_DIR / "cfg_args.yaml"),
+                      overrides={**NARROW_SET, **overrides})
+    cfg.pipeline.source_path = cfg.pipeline.optical_path = ""
+    cfg.pipeline.model_path = ""
+    fitter = GOPFitter(cfg, FrameCubeDataset(images=frames), seed=0,
+                       device="cuda", log_fn=lambda m: log(f"  fit: {m}"))
+    fitter.timer = StepTimer(hk)
+    steps, losses, ovf = [], [], []
+    run = fitter._run_single
+
+    def run_single(*a, **k):
+        c0 = counts()
+        m = run(*a, **k)
+        steps.append(tuple(b - a_ for a_, b in zip(c0, counts())))
+        losses.append(float(m.loss))
+        ovf.append((int(m.overflow), int(m.harmful_overflow),
+                    int(m.num_rendered)))
+        return m
+
+    fitter._run_single = run_single
+    for _, c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fitter.fit(iterations=NARROW_STEPS, log_every=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    total = counts()
+    log(f"{label}: {NARROW_STEPS} steps at "
+        f"{fitter.settings.image_width}x{fitter.settings.image_height} in "
+        f"{wall:.2f} s wall; settings at the end: gaussian_cap "
+        f"{fitter.settings.gaussian_cap}, tiles_per_gaussian "
+        f"{fitter.settings.tiles_per_gaussian}, copy_budget_factor "
+        f"{fitter.settings.copy_budget_factor}; launches {names} in all "
+        f"{total}; per step {steps}")
+    want = tuple(int(n in kernels) for n in names)
+    if len(steps) != NARROW_STEPS or any(c != want for c in steps):
+        raise AssertionError(f"{label}: per-step launches {steps}: "
+                             f"expected {kernels} once per step and no "
+                             f"other composite")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: losses {losses}")
+    log(f"{label}: loss per step " + ", ".join(f"{v:.5f}" for v in losses))
+    log(f"{label}: (overflow, harmful, composited copies) per step "
+        + ", ".join(str(o) for o in ovf))
+    split = fitter.timer.split()
+    log(f"{label}: step ms (CUDA events) " + ", ".join(
+        f"{r['step']:.2f}" for r in split))
+    meds = {}
+    for name, _ in NARROW_PHASES:
+        rows = [r for it, r in enumerate(split, start=1)
+                if phase_of(it, NARROW_PHASES) == name and it > 1]
+        meds[name] = {k: float(np.median([r[k] for r in rows]))
+                      for k in rows[0]}
+        log(f"{label}: {name} median step over {len(rows)} steps: "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in meds[name].items())
+            + f" ({1e3 / meds[name]['step']:.3f} it/s at 1920x1080)")
+    del fitter
+    return tuple(total[names.index(k)] for k in kernels), meds
+
+
 NARROW = (480, 854)          # DAVIS 2017 480p: 854 = 6.67 x 128
 NARROW_PHASES = (("FULL_PRECISION", 4), ("QUANTIZED_NOISE", 2),
                  ("ENTROPY", 3), ("STE_ENTROPY", 3))
@@ -1349,8 +1721,9 @@ def main() -> int:
         return 1
     from gsvc_tpu_torch import build
     from gsvc_tpu_torch.ops import hashgrid_kernels as hk
-    from gsvc_tpu_torch.render import bidir, mirror, tile
+    from gsvc_tpu_torch.render import bidir, mirror, stream, tile
     from gsvc_tpu_torch.render.splat import RasterSettings
+    from gsvc_tpu_torch.utils.checkpoint import save_checkpoint
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1385,9 +1758,33 @@ def main() -> int:
     b1, b2, b3_launches, fitter, frames = training_phase(dec, bidir, mirror,
                                                          hk)
     (h3f, h3b), (c3f, c3b) = hashgrid_phase(hk, fitter)
-    codec_phase(fitter, bidir, mirror, tile, hk)
+    codec = codec_phase(fitter, bidir, mirror, tile, hk)
+    b6f, b6b = stream_kernel_phase(stream, mirror, fitter)
+    ckpt = pathlib.Path(tempfile.mkdtemp(prefix="gsvc_smoke_ckpt_")) \
+        / "chkpnt_fitted.pkl"
+    save_checkpoint(str(ckpt), fitter, TRAIN_STEPS)
     del fitter
     torch.cuda.empty_cache()
+    counters = (("B6f", stream.stream_forward),
+                ("B6b", stream.stream_backward),
+                ("B1", mirror.mirror_forward), ("B2", mirror.mirror_backward),
+                ("B5f", tile.tile_forward), ("B5b", tile.tile_backward),
+                ("B4", bidir.bidir_composite_attrs))
+    _, cli_b6f = stream_cli_phase(ckpt, frames, codec["psnr"], counters)
+    torch.cuda.empty_cache()
+    fit_b6, stream_meds = short_fit_phase(
+        frames, hk, counters, STREAM_SET, ("B6f", "B6b"),
+        "stream fit phase (pallas_stream, copy_budget_factor 8)")
+    torch.cuda.empty_cache()
+    # the same fit through B1/B2, for comparison
+    short_fit_phase(frames, hk, counters, {"pipeline.rasterizer":
+                                           "pallas_train"}, ("B1", "B2"),
+                    "stream fit phase (pallas_train, the same fit)")
+    torch.cuda.empty_cache()
+    b6f.update(launches=fit_b6[0] + cli_b6f,
+               step_ms=stream_meds["FULL_PRECISION"]["B6f"])
+    b6b.update(launches=fit_b6[1],
+               step_ms=stream_meds["FULL_PRECISION"]["B6b+scatter"])
     b5f, b5b, _, _ = narrow_phase(frames, bidir, mirror, tile, hk)
 
     table = {"kernels": [{
@@ -1474,6 +1871,30 @@ def main() -> int:
         "bound_ms": b5b["bound_ms"],
         "bound_by": b5b["bound_by"],
         "library_ms": None,   # no PyTorch call computes a tile composite
+    }, {
+        "name": "stream_forward",
+        "route": "cuda",
+        "source": "gsvc_tpu_torch/csrc/stream_fwd.cu",
+        "replaces": "gsvc_tpu/render/pallas_stream.py:103",
+        "launches": b6f["launches"],
+        "max_abs_err": b6f["max_abs_err"],
+        "ms": b6f["ms"],
+        "plain_ms": b6f["plain_ms"],
+        "bound_ms": b6f["bound_ms"],
+        "bound_by": b6f["bound_by"],
+        "library_ms": None,   # no PyTorch call computes a stream composite
+    }, {
+        "name": "stream_backward",
+        "route": "cuda",
+        "source": "gsvc_tpu_torch/csrc/stream_bwd.cu",
+        "replaces": "gsvc_tpu/render/pallas_stream.py:172",
+        "launches": b6b["launches"],
+        "max_abs_err": b6b["max_abs_err"],
+        "ms": b6b["ms"],
+        "plain_ms": b6b["plain_ms"],
+        "bound_ms": b6b["bound_ms"],
+        "bound_by": b6b["bound_by"],
+        "library_ms": None,   # no PyTorch call computes a stream composite
     }]}
     log(json.dumps(table))
     log(f"wall: {time.perf_counter() - t_start:.1f} s")

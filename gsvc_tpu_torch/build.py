@@ -32,7 +32,7 @@ BUILD_DIR = REPO_ROOT / "build" / "gsvc_tpu_torch"
 CODEC_SRC = REPO_ROOT / "csrc" / "gsvc_codec.cpp"
 KERNEL_DIR = pathlib.Path(__file__).resolve().parent / "csrc"
 KERNELS = ("bidir", "mirror_fwd", "mirror_bwd", "hashgrid_fwd",
-           "hashgrid_bwd", "tile_fwd", "tile_bwd")
+           "hashgrid_bwd", "tile_fwd", "tile_bwd", "stream_fwd", "stream_bwd")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

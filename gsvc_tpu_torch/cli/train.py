@@ -19,68 +19,15 @@ keys plus ``device``.  A single GOP and a single device only:
 
 from __future__ import annotations
 
-import argparse
-import dataclasses
 import json
 import logging
 import pathlib
 
-from gsvc_tpu_torch.config import Config, load_config
+from gsvc_tpu_torch.cli.common import (
+    base_parser, model_config_dict, resolve_config,
+)
 
 log = logging.getLogger("gsvc_tpu_torch.train")
-
-
-def base_parser(description: str) -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description=description)
-    p.add_argument("--source_path", type=str, default="",
-                   help="directory of video frames (one GOP)")
-    p.add_argument("--optical_path", type=str, default="",
-                   help="directory of optical-flow pickles [2,H,W]")
-    p.add_argument("--model_path", type=str, required=True,
-                   help="output directory")
-    p.add_argument("--config_path", type=str, default=None,
-                   help="YAML config overlay (cfgs/*.yaml)")
-    p.add_argument("--lmbda", type=float, default=None,
-                   help="rate-distortion trade-off override")
-    p.add_argument("--iterations", type=int, default=None)
-    p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--quiet", action="store_true")
-    p.add_argument("--set", dest="overrides", action="append", default=[],
-                   metavar="SECTION.KEY=VALUE",
-                   help="dotted config override applied after the YAML "
-                        "overlay (repeatable; values parsed as YAML "
-                        "scalars)")
-    p.add_argument("--device", type=str, default="cuda",
-                   help="torch device (default cuda; cpu runs the plain "
-                        "PyTorch versions of the kernels)")
-    return p
-
-
-def resolve_config(args) -> Config:
-    overrides = None
-    if getattr(args, "overrides", None):
-        import yaml
-
-        overrides = {}
-        for spec in args.overrides:
-            key, sep, val = spec.partition("=")
-            if "." not in key or not sep:
-                raise SystemExit(
-                    f"--set expects SECTION.KEY=VALUE, got {spec!r}")
-            overrides[key.strip()] = yaml.safe_load(val)
-    cfg = load_config(args.config_path, overrides=overrides)
-    cfg.pipeline.source_path = args.source_path
-    cfg.pipeline.optical_path = args.optical_path
-    cfg.pipeline.model_path = args.model_path
-    if args.lmbda is not None:
-        cfg.optimization.lmbda = args.lmbda
-    if args.iterations is not None:
-        cfg.optimization.iterations = args.iterations
-    return cfg
-
-
-def model_config_dict(cfg: Config) -> dict:
-    return dataclasses.asdict(cfg.model)
 
 
 class _StridedFrames:

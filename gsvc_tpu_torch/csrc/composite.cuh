@@ -1,7 +1,8 @@
 // Shared pieces of the port's tile-compositing kernels (B1 mirror_fwd.cu, B2
-// mirror_bwd.cu, B4 bidir.cu, B5f tile_fwd.cu, B5b tile_bwd.cu): the constants of the
-// TPU kernels (gsvc_tpu/render/pallas_splat.py), the shared-memory stage of one chunk
-// of a tile's depth-sorted copies, and the alpha of a copy at a pixel.
+// mirror_bwd.cu, B4 bidir.cu, B5f tile_fwd.cu, B5b tile_bwd.cu, B6f stream_fwd.cu,
+// B6b stream_bwd.cu): the constants of the TPU kernels
+// (gsvc_tpu/render/pallas_splat.py), the shared-memory stage of one chunk of a tile's
+// depth-sorted copies, and the alpha of a copy at a pixel.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -69,6 +70,27 @@ __device__ __forceinline__ void load_plane_chunk(Chunk& s, const Planes& pl, int
     s.r[i] = pl.p[6][k];
     s.g[i] = pl.p[7][k];
     s.b[i] = pl.p[8][k];
+  }
+}
+
+// Stages the chunk of `chunk` consecutive slots at `base` of the stream rows [9, n_slots]
+// (the copy stream of the B6 kernels; dead slots are all zero, so their alpha is 0),
+// as load_chunk: tile-local means, conic * -1/2.  Each of the nine rows is one
+// coalesced read.
+__device__ __forceinline__ void load_stream_chunk(Chunk& s, const float* __restrict__ rows,
+                                                  size_t n_slots, size_t base, int chunk,
+                                                  float cx, float cy) {
+  for (int i = threadIdx.x; i < chunk; i += blockDim.x) {
+    const size_t k = base + i;
+    s.mx[i] = rows[k] - cx;
+    s.my[i] = rows[n_slots + k] - cy;
+    s.ha[i] = -0.5f * rows[2 * n_slots + k];
+    s.hb[i] = -0.5f * rows[3 * n_slots + k];
+    s.hc[i] = -0.5f * rows[4 * n_slots + k];
+    s.op[i] = rows[5 * n_slots + k];
+    s.r[i] = rows[6 * n_slots + k];
+    s.g[i] = rows[7 * n_slots + k];
+    s.b[i] = rows[8 * n_slots + k];
   }
 }
 

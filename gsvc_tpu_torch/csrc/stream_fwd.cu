@@ -1,0 +1,160 @@
+// Kernel B6f of the PyTorch/CUDA port: the forward composite of the forward and
+// x-mirrored views straight from the chunk-aligned copy stream.
+//
+// Replaces the TPU kernel _fwd_kernel_stream (gsvc_tpu/render/pallas_stream.py:103,
+// launched by _stream_call, :325).  The copy stream (render/splat.py
+// bin_gaussians_stream) gives every (frame, tile) nblk consecutive blocks of `chunk`
+// depth-sorted slots; the stream rows are [9, n_slots] (mean x/y, conic a/b/c, opacity,
+// rgb; dead slots all zero).  For each (data tile, view) it walks the tile's blocks:
+// the forward view front to back, the flip view back to front with each block's copies
+// bottom-up, alpha evaluated at negated tile-centred x, writing the output tile
+// mirror(u).  Output rows are in view order (f0 fwd, f0 flip, f1 fwd, f1 flip).  In
+// training it saves the transmittance at the start of every block the tile owns,
+// tchk [2, n_frames * b_max, P] (view, stream block); blocks after the tile's early
+// stop hold its final T.  The Python wrapper is gsvc_tpu_torch/render/stream.py, whose
+// plain PyTorch version computes the same function.
+//
+// What bounds it on an H100: arithmetic.  Each evaluated (copy, pixel) pair costs an
+// alpha and one compositing step, ~25 FP32 operations; a tile reads 36 B per slot once
+// (shared by its P pixels) and writes 4 floats per pixel plus one per owned block.
+//
+// What the design does about it: one block per (data tile, view), B1's layout
+// (mirror_fwd.cu): each thread owns PPT pixels and keeps their transmittance and colour
+// sums in registers for the whole tile.  The TPU kernel's grid of (view, stream block)
+// with index maps and a trash row becomes a walk over the tile's own blocks, whose
+// first block is the exclusive cumsum of nblk (frame offsets included, computed by the
+// wrapper), so dead blocks are never visited.  Each block is contiguous in the stream
+// and is staged into shared memory with nine coalesced reads (no gather).  Stops are
+// B1's, chunk-granular: a block runs only while some pixel of the tile keeps
+// T >= T_EPS (__syncthreads_or), and each pixel is gated by t_before >= T_EPS.  The
+// alpha is computed without FMA contraction, in the plain version's order.  The two
+// views of a data tile are independent blocks: no row is shared.
+#include "composite.cuh"
+
+namespace {
+
+using gsvc::Chunk;
+using gsvc::alpha_at;
+using gsvc::kMaxChunk;
+using gsvc::kMaxThreads;
+using gsvc::kTEps;
+using gsvc::load_stream_chunk;
+
+template <int PPT>
+__global__ void __launch_bounds__(kMaxThreads)
+stream_fwd_kernel(const float* __restrict__ rows, const int* __restrict__ nblk,
+                  const int* __restrict__ first, float* __restrict__ out,
+                  float* __restrict__ tchk, size_t n_slots, size_t n_blocks, int n_tiles,
+                  int n_tiles_x, int tile_w, int chunk, float bg) {
+  __shared__ Chunk s;
+  const int g = blockIdx.x;            // grid step (f * T + u) * 2 + v
+  const int d = g >> 1;                // data tile row f * T + u
+  const int v = g & 1;                 // 0: forward view, 1: flip view
+  const int f = d / n_tiles;
+  const int u = d - f * n_tiles;
+  const int tx = u % n_tiles_x;
+  const int out_row = (2 * f + v) * n_tiles + (v ? u + (n_tiles_x - 1) - 2 * tx : u);
+  const int p_pix = blockDim.x * PPT;
+  const int tile_h = p_pix / tile_w;
+  const float cx = static_cast<float>(tx * tile_w) + (tile_w - 1) / 2.0f;
+  const float cy = static_cast<float>((u / n_tiles_x) * tile_h) + (tile_h - 1) / 2.0f;
+  const int nb = nblk[d];
+  const int b0 = first[d];
+  float* tc = tchk ? tchk + static_cast<size_t>(v) * n_blocks * p_pix : nullptr;
+
+  float xs[PPT], ys[PPT], t[PPT], acc[PPT][3];
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const int lin = threadIdx.x + k * blockDim.x;
+    const float x = static_cast<float>(lin % tile_w) - (tile_w - 1) / 2.0f;
+    xs[k] = v ? -x : x;
+    ys[k] = static_cast<float>(lin / tile_w) - (tile_h - 1) / 2.0f;
+    t[k] = 1.0f;
+    acc[k][0] = acc[k][1] = acc[k][2] = 0.0f;
+  }
+
+  int p = 0;
+  for (; p < nb; ++p) {
+    int live = 0;
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) live |= t[k] >= kTEps;
+    if (!__syncthreads_or(live)) break;  // also: stage reads of block p-1 are done
+    const size_t b = static_cast<size_t>(b0 + (v ? nb - 1 - p : p));
+    if (tc) {
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) tc[b * p_pix + threadIdx.x + k * blockDim.x] = t[k];
+    }
+    load_stream_chunk(s, rows, n_slots, b * chunk, chunk, cx, cy);
+    __syncthreads();
+    float e[PPT];
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) e[k] = 1.0f;
+    for (int j = 0; j < chunk; ++j) {
+      const int i = v ? chunk - 1 - j : j;
+      const float cr = s.r[i], cg = s.g[i], cb = s.b[i];
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        const float a = alpha_at(s, i, xs[k], ys[k]).a;
+        const float tb = t[k] * e[k];
+        if (tb >= kTEps) {
+          const float w = a * tb;
+          acc[k][0] += w * cr;
+          acc[k][1] += w * cg;
+          acc[k][2] += w * cb;
+        }
+        e[k] *= 1.0f - a;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) t[k] *= e[k];
+  }
+
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const int lin = threadIdx.x + k * blockDim.x;
+    if (tc) {
+      for (int q = p; q < nb; ++q)
+        tc[static_cast<size_t>(b0 + (v ? nb - 1 - q : q)) * p_pix + lin] = t[k];
+    }
+    float* o = out + static_cast<size_t>(out_row) * 4 * p_pix;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) o[c * p_pix + lin] = acc[k][c] + t[k] * bg;
+    o[3 * p_pix + lin] = t[k];
+  }
+}
+
+}  // namespace
+
+// Launches one block per (data tile, view) step on `stream`: 2 * n_frames * n_tiles
+// blocks.  Pointers are device pointers: rows [9, n_frames * b_max * chunk] f32, nblk
+// and first [n_frames * n_tiles] i32 (each tile's block count and first stream block,
+// frame offsets f * b_max included), out [2 * n_frames * n_tiles, 4, threads * ppt]
+// f32, tchk [2, n_frames * b_max, threads * ppt] f32 or null (inference).  Returns
+// cudaGetLastError() after the launch (0 on success).
+extern "C" int stream_forward(const float* rows, const int* nblk, const int* first,
+                              float* out, float* tchk, int n_frames, int n_tiles,
+                              int n_tiles_x, int tile_w, int chunk, int b_max, int threads,
+                              int ppt, float bg, void* stream) {
+  if (chunk <= 0 || chunk > kMaxChunk || threads <= 0 || threads > kMaxThreads ||
+      tile_w <= 0 || (threads * ppt) % tile_w != 0 || b_max <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = 2 * n_frames * n_tiles;
+  if (blocks == 0) return 0;
+  const size_t n_blocks = static_cast<size_t>(n_frames) * b_max;
+  const size_t n_slots = n_blocks * chunk;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define GSVC_STREAM_FWD_LAUNCH(P)                                                     \
+  stream_fwd_kernel<P><<<blocks, threads, 0, st>>>(rows, nblk, first, out, tchk,      \
+                                                   n_slots, n_blocks, n_tiles,        \
+                                                   n_tiles_x, tile_w, chunk, bg)
+  switch (ppt) {
+    case 1: GSVC_STREAM_FWD_LAUNCH(1); break;
+    case 2: GSVC_STREAM_FWD_LAUNCH(2); break;
+    case 4: GSVC_STREAM_FWD_LAUNCH(4); break;
+    case 8: GSVC_STREAM_FWD_LAUNCH(8); break;
+    case 16: GSVC_STREAM_FWD_LAUNCH(16); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef GSVC_STREAM_FWD_LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}

@@ -10,11 +10,13 @@ pair: one generation per frame, then all four views (both frames, forward
 and x-mirrored) in one composite launch.  When the frame width is a
 multiple of ``tile_w`` the screen mirror maps tile columns onto tile
 columns, and the flip views are composited from the forward views' lists
-(kernels B1 and B2; decode: B4).  Otherwise the flip view of each frame is
+(kernels B1 and B2; decode: B4) or, with ``rasterizer="pallas_stream"``,
+from the forward views' chunk-aligned copy stream (kernels B6f and B6b;
+``render_frame_views``: B6f).  Otherwise the flip view of each frame is
 projected and binned on its own and the views' planes go through the
 single-view composite (kernels B5f and B5b; decode: ``render_frame_views``,
-B5f).  CUDA tensors launch the kernels, CPU tensors take their plain
-versions.
+B5f), whatever the rasterizer.  CUDA tensors launch the kernels, CPU
+tensors take their plain versions.
 """
 
 from __future__ import annotations
@@ -31,10 +33,14 @@ from gsvc_tpu_torch.models.gaussians import (
 )
 from gsvc_tpu_torch.render.bidir import bidir_composite_attrs
 from gsvc_tpu_torch.render.mirror import mirror_composite_attrs
-from gsvc_tpu_torch.render.pipeline import RenderResults
+from gsvc_tpu_torch.render.pipeline import RenderResults, check_rasterizer
 from gsvc_tpu_torch.render.splat import (
     RasterSettings, _bin_gaussians, assemble_views, attr_rows_from_proj,
-    gather_tile_planes_rows, project_gaussians, tile_harmful_overflow,
+    bin_gaussians_stream, gather_tile_planes_rows, project_gaussians,
+    tile_harmful_overflow,
+)
+from gsvc_tpu_torch.render.stream import (
+    concat_stream_bins, stream_composite_attrs, stream_composite_inference,
 )
 from gsvc_tpu_torch.render.tile import (
     composite_tiles_inference, tile_composite,
@@ -147,14 +153,18 @@ def render_frame_views(state: ModelState, cfg: GaussianConfig,
                        window_cap: int,
                        mode: GenerateMode = GenerateMode.FULL_PRECISION,
                        decoded: bool = False, inference: bool = False,
-                       generator: Optional[torch.Generator] = None):
+                       generator: Optional[torch.Generator] = None,
+                       rasterizer: str = ""):
     """The forward and flipped views of one frame from one generation, in
-    one composite launch: the mirror composite (B1) at tile-aligned
-    widths, else both views' planes through B5f.
+    one composite launch: at tile-aligned widths the mirror composite (B1)
+    or, with ``rasterizer="pallas_stream"``, the stream composite (B6f;
+    its training form with ``inference=False``), else both views' planes
+    through B5f.
 
     Returns (averaged image [3, H, W], images [2, 3, H, W], ts [2, H, W],
     aux = (gaussians, window start, in_window, radii, overflow,
     n_rendered))."""
+    check_rasterizer(rasterizer)
     start, in_window = window_for_frame(state, cfg, frame_z, window_cap)
     gss = generate_neural_gaussians(
         state, cfg, frame_z=frame_z, cam_z=frame_z, window_start=start,
@@ -165,10 +175,19 @@ def render_frame_views(state: ModelState, cfg: GaussianConfig,
                                  frame_z, x_min, y_min, scale, settings)
         opacity = torch.where(proj.valid[:, None], gss.opacity,
                               torch.zeros_like(gss.opacity))
-        tile_lists, counts, _, ovf, nrend = _bin_gaussians(proj, settings)
-        attrs = attr_rows_from_proj(proj, opacity, gss.color)
-        out4 = mirror_composite_attrs(settings, attrs[None],
-                                      tile_lists[None], counts[None])
+        attrs = attr_rows_from_proj(proj, opacity, gss.color)[None]
+        if rasterizer == "pallas_stream":
+            sb = bin_gaussians_stream(proj, settings)
+            ovf, nrend = sb.overflow, sb.n_rendered
+            compose = (stream_composite_inference if inference
+                       else stream_composite_attrs)
+            out4 = compose(settings, attrs,
+                           *concat_stream_bins([sb], settings))
+        else:
+            tile_lists, counts, _, ovf, nrend = _bin_gaussians(proj,
+                                                               settings)
+            out4 = mirror_composite_attrs(settings, attrs, tile_lists[None],
+                                          counts[None])
         images, ts = assemble_views(settings, out4)
     else:
         pf, cf, pb, cb, proj, ovf, nrend, _, _ = _frame_views(
@@ -284,11 +303,13 @@ def render_pair(state: ModelState, cfg: GaussianConfig, z1: float,
                 generator: Optional[torch.Generator] = None,
                 means2d: Optional[torch.Tensor] = None,
                 decoded: bool = False, noise=None,
-                timer=None) -> PairRender:
+                timer=None, rasterizer: str = "") -> PairRender:
     """Render both frames of a training pair in both view directions,
-    differentiably, in one composite launch: the mirror composite (B1/B2)
-    at tile-aligned widths, else the single-view composite (B5f/B5b) over
-    the four views' planes, each flip view projected and binned on its own.
+    differentiably, in one composite launch: at tile-aligned widths the
+    mirror composite (B1/B2) or, with ``rasterizer="pallas_stream"``, the
+    stream composite (B6f/B6b) over both frames' chunk-aligned copy
+    streams; else the single-view composite (B5f/B5b) over the four views'
+    planes, each flip view projected and binned on its own.
 
     ``means2d``: optional [4, V*K, 2] zeros whose gradients carry the
     per-view screen gradients (densification statistics).  ``noise``:
@@ -298,6 +319,7 @@ def render_pair(state: ModelState, cfg: GaussianConfig, z1: float,
     query (``_pair_entropy_contexts``).  ``timer`` (optional, with
     ``mark(name)``) is passed to the composite and the hash-grid
     kernels."""
+    check_rasterizer(rasterizer)
     wins = [window_for_frame(state, cfg, z, window_cap) for z in (z1, z2)]
     ecs = [None, None]
     if mode in (GenerateMode.ENTROPY, GenerateMode.STE_ENTROPY):
@@ -314,24 +336,35 @@ def render_pair(state: ModelState, cfg: GaussianConfig, z1: float,
             entropy_ctx=ecs[fi]), start, in_window))
 
     if can_mirror(settings):
+        use_stream = rasterizer == "pallas_stream"
         mperm = torch.from_numpy(_mirror_tile_perm(settings)).long()
-        frames, attrs_l, lists_l, counts_l = [], [], [], []
+        frames, attrs_l, bins = [], [], []
         for (gss, start, in_window), z in zip(gens, (z1, z2)):
             proj = project_gaussians(gss.xyz, gss.scaling, gss.rot,
                                      gss.valid, z, x_min, y_min, scale,
                                      settings)
-            tile_lists, counts, dropped, ovf, nrend = _bin_gaussians(
-                proj, settings)
             opacity = torch.where(proj.valid[:, None], gss.opacity,
                                   torch.zeros_like(gss.opacity))
             attrs_l.append(attr_rows_from_proj(proj, opacity, gss.color))
-            lists_l.append(tile_lists)
-            counts_l.append(counts)
+            if use_stream:
+                sb = bin_gaussians_stream(proj, settings)
+                bins.append(sb)
+                dropped, ovf, nrend = sb.dropped, sb.overflow, sb.n_rendered
+            else:
+                tile_lists, counts, dropped, ovf, nrend = _bin_gaussians(
+                    proj, settings)
+                bins.append((tile_lists, counts))
             frames.append((gss, start, in_window, proj, ovf, nrend, dropped,
                            dropped[mperm.to(dropped.device)]))
-        out4 = mirror_composite_attrs(
-            settings, torch.stack(attrs_l), torch.stack(lists_l),
-            torch.stack(counts_l), means2d, timer=timer)
+        attrs = torch.stack(attrs_l)
+        if use_stream:
+            out4 = stream_composite_attrs(
+                settings, attrs, *concat_stream_bins(bins, settings),
+                means2d, timer=timer)
+        else:
+            out4 = mirror_composite_attrs(
+                settings, attrs, torch.stack([b[0] for b in bins]),
+                torch.stack([b[1] for b in bins]), means2d, timer=timer)
         images, ts = assemble_views(settings, out4)
     else:
         m2 = (lambda i: None) if means2d is None else (lambda i: means2d[i])

@@ -70,6 +70,16 @@ def _check_inputs(settings: RasterSettings, attrs, tile_lists, counts):
         raise ValueError("gaussian_cap must be a multiple of chunk")
 
 
+def check_float32(settings: RasterSettings):
+    """The composites (B1/B2, B5f/B5b, B6f/B6b) run in float32 only."""
+    if settings.compute_dtype != "float32" or \
+            settings.matmul_dtype != "float32":
+        raise ValueError(
+            "the port composites in float32 only; compute_dtype "
+            f"{settings.compute_dtype!r} / matmul_dtype "
+            f"{settings.matmul_dtype!r} are TPU MXU precision policies")
+
+
 def _kernel_shape(settings: RasterSettings):
     """(threads per block, pixels per thread) the kernel runs with."""
     p_pix = settings.tile_h * settings.tile_w

@@ -48,7 +48,9 @@ import ctypes
 import torch
 
 from gsvc_tpu_torch.build import load
-from gsvc_tpu_torch.render.bidir import _check_inputs, _kernel_shape
+from gsvc_tpu_torch.render.bidir import (
+    _check_inputs, _kernel_shape, check_float32,
+)
 from gsvc_tpu_torch.render.splat import (
     ALPHA_MAX, ALPHA_MIN, T_EPS, RasterSettings,
 )
@@ -61,12 +63,7 @@ PLAIN_BATCH = 1024
 def check_inputs(settings: RasterSettings, attrs, tile_lists, counts):
     """Validate the composite's inputs (B4's checks plus float32 and a
     tile-aligned width); returns F (frames)."""
-    if settings.compute_dtype != "float32" or \
-            settings.matmul_dtype != "float32":
-        raise ValueError(
-            "the port composites in float32 only; compute_dtype "
-            f"{settings.compute_dtype!r} / matmul_dtype "
-            f"{settings.matmul_dtype!r} are TPU MXU precision policies")
+    check_float32(settings)
     _check_inputs(settings, attrs, tile_lists, counts)
     return attrs.shape[0]
 

@@ -9,6 +9,9 @@ One view of one frame: projection and binning, then the single-view
 composite (kernels B5f/B5b on CUDA tensors, their plain versions on CPU
 tensors).  The training step and the decoder use the batched paths of
 ``render/batched.py``; these serve tests and evaluation.
+
+``RASTERIZERS`` are the ``pipeline.rasterizer`` names the port serves;
+any other name raises where a rasterizer is chosen.
 """
 
 from __future__ import annotations
@@ -28,6 +31,20 @@ from gsvc_tpu_torch.render.splat import (
 from gsvc_tpu_torch.render.tile import (
     composite_tiles_inference, tile_composite,
 )
+
+# "", "jnp", "pallas" and "pallas_train" composite through the mirror
+# kernels B1/B2 (B4 to decode) at tile-aligned widths; "pallas_stream"
+# through the stream kernels B6f/B6b; every name through B5f/B5b at
+# other widths
+RASTERIZERS = ("", "jnp", "pallas", "pallas_train", "pallas_stream")
+
+
+def check_rasterizer(name: str) -> str:
+    """``name`` if the port serves it, else ValueError."""
+    if name not in RASTERIZERS:
+        raise ValueError(f"unknown rasterizer {name!r}; the port serves "
+                         f"{RASTERIZERS}")
+    return name
 
 
 class RenderResults(NamedTuple):
@@ -118,11 +135,10 @@ def render_frame(state: ModelState, cfg: GaussianConfig, frame_z: float,
     reversed view, whose image the caller x-flips before averaging).
 
     ``rasterizer`` "pallas" composites forward-only (B5f); every other
-    ported name ("", "jnp", "pallas_train") differentiably (B5f/B5b)."""
-    if rasterizer not in ("", "jnp", "pallas", "pallas_train"):
-        raise NotImplementedError(
-            f"rasterizer {rasterizer!r} is not ported (pallas_stream is "
-            f"kernel pair B6)")
+    name the port serves ("", "jnp", "pallas_train", "pallas_stream")
+    differentiably (B5f/B5b): the JAX package sends "pallas_stream" to its
+    non-Pallas compositor here, where "jnp" goes."""
+    check_rasterizer(rasterizer)
     start, in_window = window_for_frame(state, cfg, frame_z, window_cap)
     gss = generate_neural_gaussians(
         state, cfg, frame_z=frame_z, cam_z=frame_z, window_start=start,

@@ -1,19 +1,26 @@
 """Orthographic gaussian splatting: projection, tile binning and the
 tile <-> image layouts (port of gsvc_tpu/render/splat.py:44-126,
-171-388, 571-641).
+171-466, 571-641).
 
   * the Toast-like Sliding Window is the ``threshold`` z-test around the
     frame plane;
   * binning is one stable sort of fused ``(tile << rank_bits) | rank``
     int32 keys — ``torch.sort(stable=True)`` in place of ``lax.sort`` —
-    giving per-tile depth-ordered lists of at most ``gaussian_cap`` ids.
-    The lists and counts equal the JAX package's whenever no two copies
-    share a tile and a depth rank.
+    over either the padded copy stream (``tiles_per_gaussian`` slots per
+    gaussian) or, with ``copy_budget_factor > 0``, the compacted one
+    (``m * factor`` slots holding the copies actually emitted, the
+    deepest dropped past the budget).  It gives per-tile depth-ordered
+    lists of at most ``gaussian_cap`` ids (``_bin_gaussians``) or the
+    chunk-aligned stream of the stream composite
+    (``bin_gaussians_stream``).  Lists, counts and streams equal the JAX
+    package's whenever no two copies share a tile and a depth rank.
 
 Compositing lives in ``render/bidir.py`` (decode, kernel B4),
-``render/mirror.py`` (training, kernels B1 and B2) and ``render/tile.py``
-(any width, kernels B5f and B5b), each beside its plain version.  Projection and the attribute rows carry gradients (every op is
-differentiable); binning is integer work with none.
+``render/mirror.py`` (training, kernels B1 and B2), ``render/tile.py``
+(any width, kernels B5f and B5b) and ``render/stream.py`` (the copy
+stream, kernels B6f and B6b), each beside its plain version.  Projection
+and the attribute rows carry gradients (every op is differentiable);
+binning is integer work with none.
 """
 
 from __future__ import annotations
@@ -39,9 +46,10 @@ class RasterSettings:
     ``tile_h/tile_w/gaussian_cap/chunk`` shape the compositing kernel;
     ``tiles_per_gaussian`` bounds the copies one gaussian emits and
     ``clamp_to_coverage`` clamps scales so no footprint exceeds it.
-    ``copy_budget_factor`` (compacted copy stream), ``compute_dtype`` and
-    ``matmul_dtype`` (TPU MXU precision policies) are kept for config
-    parity; the port composites in float32 and bins the padded stream."""
+    ``copy_budget_factor`` > 0 bins the compacted copy stream of at most
+    ``m * factor`` copies.  ``compute_dtype`` and ``matmul_dtype`` (TPU
+    MXU precision policies) are kept for config parity; the port
+    composites in float32."""
 
     image_height: int
     image_width: int
@@ -170,15 +178,20 @@ def project_gaussians(xyz, scaling, rot, valid, frame_z: float,
 # ---------------------------------------------------------------------------
 
 def _sorted_copy_stream(proj: Projected, settings: RasterSettings):
-    """Device-wide sorted copy stream (padded layout: every gaussian
-    emits ``tiles_per_gaussian`` copy slots covering its tile bbox).
+    """Device-wide sorted copy stream: every gaussian emits the copies
+    covering its tile bbox, clamped to ``tiles_per_gaussian``.
+
+    Padded layout (default): ``tiles_per_gaussian`` slots per gaussian.
+    Compacted layout (``copy_budget_factor`` > 0, smaller than
+    ``tiles_per_gaussian``, fused keys): ``m * factor`` slots, slot p
+    holding copy ``p - base[gi]`` of gaussian ``gi = searchsorted(cum, p,
+    right)``; copies past the budget (the deepest gaussians' in index
+    order) are dropped and counted.  With a stable sort both give the
+    same tile lists whenever nothing exceeds the budget.
 
     Returns (gauss_sorted [S] int32 gaussian id per sorted copy, bounds
-    [n_tiles+1] per-tile stream offsets, coverage_clipped, src_len)."""
-    if settings.copy_budget_factor:
-        raise NotImplementedError(
-            "the compacted copy stream (copy_budget_factor > 0) is not "
-            "ported; the decoder bins the padded stream")
+    [n_tiles+1] per-tile stream offsets, coverage_clipped, budget_dropped,
+    src_len)."""
     m = proj.mean2d.shape[0]
     t_max = settings.tiles_per_gaussian
     dev = proj.depth.device
@@ -220,24 +233,55 @@ def _sorted_copy_stream(proj: Projected, settings: RasterSettings):
         proj.valid, torch.clamp(n_cover - t_max, min=0),
         torch.zeros_like(n_cover)).sum()
 
-    slot = torch.arange(t_max, dtype=i32, device=dev)[None, :]   # [1, T]
-    sdy = torch.div(slot, wx[:, None], rounding_mode="floor")
-    sdx = slot - sdy * wx[:, None]
-    copy_valid = (slot < n_cover[:, None]) & (sdy < wy[:, None]) \
-        & proj.valid[:, None]
-    tile_id = (ty0[:, None] + sdy) * settings.n_tiles_x + (tx0[:, None] + sdx)
-    tile_key = torch.where(copy_valid, tile_id,
-                           torch.full_like(tile_id, settings.n_tiles))
     # one fused key; int64 only when the tile count outgrows 31 bits
     fused_ok = (settings.n_tiles + 1) << rank_bits <= 2 ** 31
-    kdt = i32 if fused_ok else torch.int64
-    fused = (tile_key.to(kdt) << rank_bits) | rank.to(kdt)[:, None]
-    fused_sorted, perm = torch.sort(fused.reshape(-1), stable=True)
-    gauss_sorted = torch.div(perm, t_max, rounding_mode="floor").to(i32)
+    factor = settings.copy_budget_factor
+    budget_dropped = torch.zeros((), dtype=i32, device=dev)
+    if factor and factor < t_max and fused_ok:
+        n_cover_c = torch.where(proj.valid, torch.clamp(n_cover, max=t_max),
+                                torch.zeros_like(n_cover))
+        cum = torch.cumsum(n_cover_c, 0, dtype=i32)
+        base = cum - n_cover_c
+        budget = m * factor
+        p = torch.arange(budget, dtype=i32, device=dev)
+        gi = torch.clamp(torch.searchsorted(cum, p, right=True), 0,
+                         m - 1).to(i32)
+        rows = torch.stack([tx0, ty0, wx, n_cover_c, base, rank],
+                           dim=1)[gi.long()]                 # [budget, 6]
+        atx0, aty0, awx, acov, abase, arank = rows.unbind(1)
+        j_loc = p - abase
+        live = (j_loc >= 0) & (j_loc < acov)
+        awx1 = torch.clamp(awx, min=1)
+        dy = torch.div(j_loc, awx1, rounding_mode="floor")
+        tile_c = (aty0 + dy) * settings.n_tiles_x + (atx0 + j_loc - dy * awx1)
+        tile_key = torch.where(live, tile_c,
+                               torch.full_like(tile_c, settings.n_tiles))
+        fused = (tile_key << rank_bits) | torch.where(
+            live, arank, torch.zeros_like(arank))
+        fused_sorted, perm = torch.sort(fused, stable=True)
+        gauss_sorted = gi[perm]
+        budget_dropped = torch.clamp(cum[-1] - budget, min=0)
+        src_len = budget
+        kdt = i32
+    else:
+        slot = torch.arange(t_max, dtype=i32, device=dev)[None, :]  # [1, T]
+        sdy = torch.div(slot, wx[:, None], rounding_mode="floor")
+        sdx = slot - sdy * wx[:, None]
+        copy_valid = (slot < n_cover[:, None]) & (sdy < wy[:, None]) \
+            & proj.valid[:, None]
+        tile_id = (ty0[:, None] + sdy) * settings.n_tiles_x \
+            + (tx0[:, None] + sdx)
+        tile_key = torch.where(copy_valid, tile_id,
+                               torch.full_like(tile_id, settings.n_tiles))
+        kdt = i32 if fused_ok else torch.int64
+        fused = (tile_key.to(kdt) << rank_bits) | rank.to(kdt)[:, None]
+        fused_sorted, perm = torch.sort(fused.reshape(-1), stable=True)
+        gauss_sorted = torch.div(perm, t_max, rounding_mode="floor").to(i32)
+        src_len = m * t_max
     starts = torch.arange(settings.n_tiles + 1, dtype=kdt,
                           device=dev) << rank_bits
     bounds = torch.searchsorted(fused_sorted, starts).to(i32)
-    return gauss_sorted, bounds, coverage_clipped, m * t_max
+    return gauss_sorted, bounds, coverage_clipped, budget_dropped, src_len
 
 
 def _bin_gaussians(proj: Projected, settings: RasterSettings):
@@ -245,8 +289,9 @@ def _bin_gaussians(proj: Projected, settings: RasterSettings):
 
     Returns (tile_lists [n_tiles, cap] int32, -1 past each count;
     tile_counts [n_tiles] int32 (<= cap); dropped [n_tiles]; overflow
-    (dropped + coverage-clipped copies); total composited copies)."""
-    gauss_sorted, bounds, coverage_clipped, src_len = \
+    (copies dropped at the cap, by the coverage clamp and past the copy
+    budget); total composited copies)."""
+    gauss_sorted, bounds, coverage_clipped, budget_dropped, src_len = \
         _sorted_copy_stream(proj, settings)
     tile_start = bounds[:-1]
     tile_count = bounds[1:] - bounds[:-1]
@@ -259,9 +304,82 @@ def _bin_gaussians(proj: Projected, settings: RasterSettings):
                              torch.full_like(gather_idx, -1))
 
     dropped = torch.clamp(tile_count - cap, min=0)
-    overflow = dropped.sum() + coverage_clipped
+    overflow = dropped.sum() + coverage_clipped + budget_dropped
     counts = torch.clamp(tile_count, max=cap)
     return tile_lists, counts, dropped, overflow, counts.sum()
+
+
+class StreamBins(NamedTuple):
+    """Chunk-aligned copy-stream binning of one frame (forward view;
+    integer work only).
+
+    The sorted copy stream re-laid so that every tile's span starts on a
+    chunk boundary: each tile owns ``nblk`` consecutive blocks of
+    ``chunk`` slots (at least one, so an empty tile still renders
+    background), and the stream is padded to the static bound
+    ``stream_blocks_max``.  Dead slots and blocks carry id / tile -1."""
+
+    ids: torch.Tensor        # [S_MAX] int32 gaussian id per slot, -1 dead
+    blk_tile: torch.Tensor   # [B_MAX] int32 owning tile per block, -1 dead
+    blk_cc: torch.Tensor     # [B_MAX] int32 chunk index within the tile
+    nblk: torch.Tensor       # [n_tiles] int32 blocks per tile (>= 1)
+    counts: torch.Tensor     # [n_tiles] int32 composited copies (<= cap)
+    dropped: torch.Tensor    # [n_tiles] copies dropped at gaussian_cap
+    overflow: torch.Tensor   # cap + coverage + budget drops
+    n_rendered: torch.Tensor  # composited copies
+
+
+def stream_blocks_max(settings: RasterSettings, m: int) -> int:
+    """Static per-frame block bound B_MAX of the aligned stream: at most
+    min(m * copies per gaussian, tiles * cap) composited copies, plus less
+    than one alignment block per tile.  Static, so sizing the stream
+    needs no host read of the live block count."""
+    per_g = settings.tiles_per_gaussian
+    if settings.copy_budget_factor:
+        per_g = min(per_g, settings.copy_budget_factor)
+    s_bound = min(m * per_g, settings.n_tiles * settings.gaussian_cap)
+    return s_bound // settings.chunk + settings.n_tiles
+
+
+def bin_gaussians_stream(proj: Projected,
+                         settings: RasterSettings) -> StreamBins:
+    """The chunk-aligned copy stream of the stream composite
+    (``render/stream.py``)."""
+    gauss_sorted, bounds, coverage_clipped, budget_dropped, src_len = \
+        _sorted_copy_stream(proj, settings)
+    t_n, chunk = settings.n_tiles, settings.chunk
+    cap = settings.gaussian_cap
+    dev = bounds.device
+    i32 = torch.int32
+
+    tile_start = bounds[:-1]
+    tile_count = bounds[1:] - bounds[:-1]
+    counts = torch.clamp(tile_count, max=cap)
+    dropped = torch.clamp(tile_count - cap, min=0)
+    overflow = dropped.sum() + coverage_clipped + budget_dropped
+
+    nblk = torch.clamp((counts + chunk - 1) // chunk, min=1)
+    blk_end = torch.cumsum(nblk, 0, dtype=i32)
+    blk_start = blk_end - nblk
+
+    b_max = stream_blocks_max(settings, proj.mean2d.shape[0])
+    b = torch.arange(b_max, dtype=i32, device=dev)
+    d = torch.searchsorted(blk_end, b, right=True).to(i32)
+    live_b = b < blk_end[-1]
+    d_c = torch.clamp(d, max=t_n - 1).long()
+    blk_tile = torch.where(live_b, d_c.to(i32), torch.full_like(b, -1))
+    blk_cc = torch.where(live_b, b - blk_start[d_c], torch.zeros_like(b))
+
+    q = torch.arange(b_max * chunk, dtype=i32, device=dev)
+    dt = torch.repeat_interleave(blk_tile, chunk)
+    dt_c = torch.clamp(dt, min=0).long()
+    j = q - torch.repeat_interleave(blk_start[d_c], chunk) * chunk
+    valid = (dt >= 0) & (j < counts[dt_c])
+    src = torch.clamp(tile_start[dt_c] + j, 0, src_len - 1)
+    ids = torch.where(valid, gauss_sorted[src.long()], torch.full_like(q, -1))
+    return StreamBins(ids=ids, blk_tile=blk_tile, blk_cc=blk_cc, nblk=nblk,
+                      counts=counts, dropped=dropped, overflow=overflow,
+                      n_rendered=counts.sum())
 
 
 def attr_rows_from_proj(proj: Projected, opacity, color) -> torch.Tensor:

@@ -33,18 +33,13 @@ import torch
 
 from gsvc_tpu_torch.build import load
 from gsvc_tpu_torch.render import mirror
-from gsvc_tpu_torch.render.bidir import _kernel_shape
+from gsvc_tpu_torch.render.bidir import _kernel_shape, check_float32
 from gsvc_tpu_torch.render.splat import RasterSettings
 
 
 def check_planes(settings: RasterSettings, planes, counts) -> int:
     """Validate the composite's inputs; returns the row count V*T."""
-    if settings.compute_dtype != "float32" or \
-            settings.matmul_dtype != "float32":
-        raise ValueError(
-            "the port composites in float32 only; compute_dtype "
-            f"{settings.compute_dtype!r} / matmul_dtype "
-            f"{settings.matmul_dtype!r} are TPU MXU precision policies")
+    check_float32(settings)
     if len(planes) != 9:
         raise ValueError(f"expected 9 planes, got {len(planes)}")
     n_rows = planes[0].shape[0]

@@ -1,14 +1,19 @@
 """Full-video evaluation and frame export (port of ``evaluate_video``,
 gsvc_tpu/report.py, with the decoded render loop).
 
-Renders each frame through ``render_frame_bidir`` (the decode path),
+Renders each frame through ``render_frame_bidir`` (the decode path: kernel
+B4), or, when the environment sets ``GSVC_RASTERIZER=pallas_stream``, as
+the JAX package's ``_make_eval_render`` chooses, through
+``render_frame_views`` on the stream composite (kernel B6f, both views);
 times the renders on the device clock's terms — each render ends in a
 device synchronise — and, given ground truth, scores PSNR, SSIM and
-MS-SSIM per frame.  Results are plain dicts.
+MS-SSIM per frame.  Results are plain dicts.  (JAX's ``GSVC_DECODE``
+two-view "mirror" decode is not ported.)
 """
 
 from __future__ import annotations
 
+import os
 import pathlib
 import time
 from typing import Optional, Sequence
@@ -21,7 +26,10 @@ from gsvc_tpu_torch.metrics.image import ms_ssim, psnr, ssim
 from gsvc_tpu_torch.models.gaussians import (
     GaussianConfig, GenerateMode, ModelState,
 )
-from gsvc_tpu_torch.render.batched import render_frame_bidir
+from gsvc_tpu_torch.render.batched import (
+    render_frame_bidir, render_frame_views,
+)
+from gsvc_tpu_torch.render.pipeline import check_rasterizer
 from gsvc_tpu_torch.render.splat import RasterSettings
 
 
@@ -41,6 +49,8 @@ def evaluate_video(state: ModelState, cfg: GaussianConfig,
     ``frame_ids`` names the frames of ``frame_zs`` (default 0..n-1): they
     index ``gt_images`` and the dumped PNG names."""
     dev = state.anchors.anchor.device
+    stream = check_rasterizer(
+        os.environ.get("GSVC_RASTERIZER", "")) == "pallas_stream"
     n = len(frame_zs)
     ids = list(range(n)) if frame_ids is None else list(frame_ids)
     can_msssim = (compute_msssim and settings.image_height >= 176
@@ -55,9 +65,15 @@ def evaluate_video(state: ModelState, cfg: GaussianConfig,
     with torch.no_grad():
         for fid, fz in zip(ids, frame_zs):
             t0 = time.perf_counter()
-            img, _, _ = render_frame_bidir(
-                state, cfg, float(fz), x_min, y_min, scale, settings,
-                window_cap, mode=mode, decoded=decoded)
+            if stream:
+                img, _, _, _ = render_frame_views(
+                    state, cfg, float(fz), x_min, y_min, scale, settings,
+                    window_cap, mode=mode, decoded=decoded, inference=True,
+                    rasterizer="pallas_stream")
+            else:
+                img, _, _ = render_frame_bidir(
+                    state, cfg, float(fz), x_min, y_min, scale, settings,
+                    window_cap, mode=mode, decoded=decoded)
             synchronize(dev)
             render_time += time.perf_counter() - t0
             if gt_images is not None:

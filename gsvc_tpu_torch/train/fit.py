@@ -43,7 +43,9 @@ from gsvc_tpu_torch.models.gaussians import (
     mean_nn3_distance, update_anchor_bound,
 )
 from gsvc_tpu_torch.render.batched import render_frame_bidir
-from gsvc_tpu_torch.render.pipeline import make_raster_settings
+from gsvc_tpu_torch.render.pipeline import (
+    check_rasterizer, make_raster_settings,
+)
 from gsvc_tpu_torch.train.controller import TrainingController
 from gsvc_tpu_torch.train.densify import adjust_anchors, resort_by_z
 from gsvc_tpu_torch.train.optim import AdamState, adam_init
@@ -51,12 +53,6 @@ from gsvc_tpu_torch.train.schedules import build_schedules
 from gsvc_tpu_torch.train.trainer import (
     TrainStats, gt_f32, init_stats, make_step_body,
 )
-
-# rasterizer settings the port serves: all name the same compositing
-# function (kernels B1/B2 at tile-aligned widths, B5f/B5b at others);
-# "pallas_stream" is kernel pair B6, not ported yet
-_PORTED_RASTERIZERS = ("", "jnp", "pallas", "pallas_train")
-
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
@@ -112,12 +108,11 @@ class GOPFitter:
         # a CPU generator (below), the same on every device
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
-        if cfg.pipeline.rasterizer not in _PORTED_RASTERIZERS:
-            raise NotImplementedError(
-                f"rasterizer {cfg.pipeline.rasterizer!r} is not ported; the "
-                f"port trains through kernels B1/B2 (tile-aligned widths) "
-                f"and B5f/B5b (other widths); pallas_stream is kernel "
-                f"pair B6")
+        # "", "jnp", "pallas" and "pallas_train" train through kernels
+        # B1/B2 at tile-aligned widths, "pallas_stream" through B6f/B6b
+        # (with the compacted copy stream when copy_budget_factor > 0),
+        # every name through B5f/B5b at other widths; others raise
+        self.rasterizer = check_rasterizer(cfg.pipeline.rasterizer)
         if cfg.pipeline.mesh_shape:
             raise NotImplementedError("the port fits on one device; "
                                       "pipeline.mesh_shape is not ported")
@@ -214,7 +209,8 @@ class GOPFitter:
         self.train_step = make_step_body(
             self.gcfg, self.settings, self.window_cap,
             self.cfg.optimization, width=d.width, height=d.height,
-            scale=d.scale, x_min=d.x_min, y_min=d.y_min)
+            scale=d.scale, x_min=d.x_min, y_min=d.y_min,
+            rasterizer=self.rasterizer)
 
     def _lr_values(self, it: int) -> Dict[str, float]:
         return {name: sched(it) for name, sched in self.schedules.items()}
@@ -438,7 +434,9 @@ class GOPFitter:
         self.log(f"iter {it}: WARNING render overflow={overflow} "
                  f"(harmful={harmful if harmful >= 0 else 'n/a'}); growing "
                  f"gaussian_cap {s.gaussian_cap}->{new_cap}, "
-                 f"tiles_per_gaussian {s.tiles_per_gaussian}->{new_tpg}")
+                 f"tiles_per_gaussian {s.tiles_per_gaussian}->{new_tpg}"
+                 + (f", copy_budget_factor {s.copy_budget_factor}->"
+                    f"{new_cbf}" if s.copy_budget_factor else ""))
         return True
 
     # -- main loop ---------------------------------------------------------

@@ -20,6 +20,11 @@ Single-view kernels B5f/B5b (widths that are not a multiple of tile_w):
 the forward and checkpoints to 2 T_EPS, the gradients to 2e-3 of each
 attribute's largest magnitude, for the reasons given for B1/B2.
 
+Stream kernels B6f/B6b (the chunk-aligned copy stream of the same seeded
+lists, chunk 16 and 128, with dead tail blocks): the forward and the
+per-block checkpoints to 2 T_EPS, the gradients to 2e-3 of each
+attribute's largest magnitude, for the reasons given for B1/B2.
+
 Hash-grid kernels B3f/B3b (at the fixture's spec, F = 8, 12 3D + 4 2D
 levels, N = 25k and 150k queries): the forward equals the plain version
 to 1e-6 (both round the cell, the corner sums and the division alike);
@@ -36,7 +41,7 @@ import torch
 
 from gsvc_tpu_torch.ops import hashgrid_kernels as hk
 from gsvc_tpu_torch.ops.hashgrid import make_mix_grid_spec
-from gsvc_tpu_torch.render import bidir, mirror, tile
+from gsvc_tpu_torch.render import bidir, mirror, stream, tile
 from gsvc_tpu_torch.render.splat import (
     T_EPS, RasterSettings, gather_tile_planes_rows,
 )
@@ -191,6 +196,127 @@ def test_mirror_views_do_not_collide():
         assert scale > 0
         err = float((m2d.grad[view] - dm_p[view]).abs().max())
         assert err <= BWD_REL * scale, (view, err, scale)
+
+
+def _stream(settings, seed, opacity_hi):
+    """Seeded tiles of two frames as the stream composite's inputs: attrs
+    [2, M, 9] and the chunk-aligned stream of their lists, sized with
+    spare (dead) blocks at each frame's tail."""
+    attrs, lists, counts = _frames(settings, seed, opacity_hi)
+    nblk = torch.clamp((counts + settings.chunk - 1) // settings.chunk,
+                       min=1)
+    b_max = int(nblk.sum(dim=1).max()) + 3
+    return attrs, stream.stream_from_tile_lists(settings, lists, counts,
+                                                b_max)
+
+
+def _live_blocks(bins, chunk):
+    """Masks of the live blocks [F*B] and live slots [F*S]."""
+    blk = bins[1] >= 0
+    return blk, blk.repeat_interleave(chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["small", "train"])
+@pytest.mark.parametrize("opacity_hi", [0.1, 0.99])
+def test_stream_kernels_match_plain(shape, opacity_hi):
+    """B6f (with and without checkpoints) and B6b against their plain
+    versions: empty tiles (one block of dead slots), full lists, partial
+    last blocks, saturated tiles and dead tail blocks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    settings = SMALL if shape == "small" else TRAIN
+    attrs, bins = _stream(settings, 11, opacity_hi)
+    rows = stream.stream_rows(attrs, bins[0])
+    before = stream.stream_forward.launches
+    out_k, chk_k = stream.stream_forward(settings, rows, *bins)
+    out_i, none = stream.stream_forward(settings, rows, *bins,
+                                        save_tchk=False)
+    assert stream.stream_forward.launches == before + 2 and none is None
+    out_p, chk_p, pairs = stream.stream_fwd_plain(settings, rows, *bins)
+    torch.cuda.synchronize()
+    assert pairs > 0 and torch.isfinite(out_k).all()
+    assert (bins[3] == 1).any() and (bins[1] < 0).any()
+    torch.testing.assert_close(out_k, out_p, atol=2 * T_EPS, rtol=0)
+    torch.testing.assert_close(chk_k, chk_p, atol=2 * T_EPS, rtol=0)
+    torch.testing.assert_close(out_i, out_k, atol=0, rtol=0)
+
+    g = torch.randn(out_p.shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(12))
+    before = stream.stream_backward.launches
+    gr_k = stream.stream_backward(settings, rows, *bins, out_p, chk_p, g)
+    assert stream.stream_backward.launches == before + 1
+    gr_p, _ = stream.stream_bwd_plain(settings, rows, *bins, out_p, chk_p,
+                                      g)
+    torch.cuda.synchronize()
+    assert torch.isfinite(gr_k).all()
+    _, live = _live_blocks(bins, settings.chunk)
+    assert float(gr_k[:, :, ~live].abs().max()) == 0.0
+    for v in range(2):
+        _check_bwd(gr_k[v].T[:, :, None], gr_p[v].T[:, :, None])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_m2d", [False, True])
+def test_stream_composite_autograd_matches_plain(with_m2d):
+    """``stream_composite_attrs`` on the card (B6f/B6b and the scatter)
+    against the same autograd function on CPU copies: outputs, attribute
+    gradients and each view's m2d gradients."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    attrs, bins = _stream(SMALL, 13, 0.6)
+    outs, grads = [], []
+    for dev in ("cuda", "cpu"):
+        a = attrs.to(dev).clone().requires_grad_(True)
+        m2d = (torch.zeros((4, attrs.shape[1], 2), device=dev,
+                           requires_grad=True) if with_m2d else None)
+        out = stream.stream_composite_attrs(
+            SMALL, a, *(b.to(dev) for b in bins), m2d)
+        g = torch.randn(out.shape,
+                        generator=torch.Generator().manual_seed(14))
+        out.backward(g.to(dev))
+        outs.append(out.detach().cpu())
+        grads.append((a.grad.cpu(),
+                      m2d.grad.cpu() if with_m2d else None))
+    torch.testing.assert_close(outs[0], outs[1], atol=2 * T_EPS, rtol=0)
+    _check_bwd(grads[0][0].reshape(-1, 9)[:, :, None],
+               grads[1][0].reshape(-1, 9)[:, :, None])
+    if with_m2d:
+        for view in range(4):
+            scale = float(grads[1][1][view].abs().max())
+            assert scale > 0
+            err = float((grads[0][1][view] - grads[1][1][view]).abs().max())
+            assert err <= BWD_REL * scale, (view, err, scale)
+
+
+@pytest.mark.cuda
+def test_stream_kernels_raise_without_their_library(monkeypatch):
+    """On CUDA tensors the stream composite launches its kernels or
+    raises: a library that does not build, and settings the kernels do
+    not take, raise instead of running the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    attrs, bins = _stream(SMALL, 15, 0.5)
+    rows = stream.stream_rows(attrs, bins[0])
+
+    def no_build(name):
+        raise RuntimeError(f"building {name} failed")
+
+    monkeypatch.setattr(stream, "load", no_build)
+    before = stream.stream_forward.launches
+    with pytest.raises(RuntimeError, match="building stream_fwd"):
+        stream.stream_composite_attrs(SMALL, attrs, *bins)
+    with pytest.raises(RuntimeError, match="building stream_fwd"):
+        stream.stream_composite_inference(SMALL, attrs, *bins)
+    assert stream.stream_forward.launches == before
+    monkeypatch.undo()
+    big_chunk = RasterSettings(image_height=40, image_width=48,
+                               threshold=0.15, tile_h=8, tile_w=16,
+                               gaussian_cap=512, chunk=256,
+                               tiles_per_gaussian=32)
+    with pytest.raises(ValueError, match="chunk"):
+        stream.stream_forward(big_chunk, rows, bins[0].reshape(2, -1),
+                              *bins[1:])
 
 
 SMALL_NARROW = RasterSettings(image_height=40, image_width=40, threshold=0.15,
