@@ -5,7 +5,10 @@
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the port's native code from the checkout (``nvcc`` for the
    kernels, the host C++ compiler for the entropy codec), all compilers
-   started together, and prints the build's wall seconds.
+   started together, and prints the build's wall seconds, each kernel's
+   registers, shared memory and spills (``-Xptxas -v``), and the SASS
+   instructions per evaluated (copy, pixel) pair of the inner loops of
+   B1, B2, B6f and B6b (``cuobjdump -sass``, where the toolkit has it).
 3. Kernel phase: kernel B4 (``bidir_composite_attrs``) against its plain
    PyTorch version at the 1080p decode shapes (T=1020 tiles, cap 1024,
    chunk 128, P=2048 pixels), and kernels B1/B2 (``mirror_forward`` /
@@ -13,7 +16,8 @@
    1080p training shapes (F=2 frames, T=2025 tiles of 8x128, cap 1024,
    chunk 128), with and without per-view means2d gradients; seeded
    attribute rows: empty tiles, full lists of saturated stacks,
-   chunk-aligned and partial last chunks.
+   chunk-aligned and partial last chunks.  B2 takes the forward's out4
+   and t_chk, and two of its launches must give the same bits.
 4. Decode phase: decodes the committed 1080p bitstream
    (artifacts/rd_r5/realtex_0.004) with ``gsvc_tpu_torch.cli.decode`` and
    renders 8 frames through ``report.evaluate_video`` — the decoder's own
@@ -79,7 +83,8 @@
    binned with copy_budget_factor 0 and 8 (``bin_gaussians_stream``);
    (b) on the same copies B6f against B1 and B6b against B2 (both
    scattered to the gaussians, with per-view means2d), kernel to kernel,
-   and their times against their bounds and against B1/B2's; then (d)
+   and their times against their bounds and against B1/B2's, taken in
+   turns on the same copies (the log prints B1/B6f and B2/B6b); then (d)
    ``gsvc_tpu_torch.cli.stream.main`` on a checkpoint of the fitted state
    with --set pipeline.rasterizer=pallas_stream --set
    pipeline.copy_budget_factor=8 and GSVC_RASTERIZER=pallas_stream (the
@@ -121,6 +126,8 @@ from __future__ import annotations
 
 import json
 import pathlib
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -156,9 +163,9 @@ SCHEDULE = {"optimization.iterations": TRAIN_STEPS,
             "optimization.update_until": TRAIN_STEPS}
 # kernel B2 vs its plain version, per attribute: the largest difference at
 # most 2e-3 of the largest gradient magnitude.  Both run the same chunk
-# stops; the kernel forms each in-chunk suffix as the chunk's sum minus a
-# running prefix, the plain version by a reverse cumsum, and 1/(1 - alpha)
-# amplifies that rounding up to 100x; pixel sums also run in other orders.
+# stops; the kernel forms each suffix as the colour total minus a running
+# sum, the plain version by a reverse cumsum, and 1/(1 - alpha) amplifies
+# that rounding up to 100x; pixel sums also run in other orders.
 BWD_REL_ERR = 2e-3
 # kernel vs plain version: both run the same per-tile, chunk-granular loop
 # stops; they differ by float rounding (sequential products in the kernel,
@@ -177,8 +184,7 @@ FLOPS_PER_PAIR = 25
 # least FP32 work of one replayed (copy, pixel) pair in the backward: the
 # alpha (15), its transmittance and weight (3), the colour-gradient dot
 # (5), the suffix (2), dL/dalpha with its division (5), dq (2), the six
-# moment sums (11) and the colour sums (6); the kernel's second alpha
-# evaluation is not counted.
+# moment sums (11) and the colour sums (6).
 FLOPS_PER_BWD_PAIR = 49
 # kernel B3b vs its plain version: the largest difference at most 1e-4 of
 # the largest gradient magnitude (the table gradient is an atomic float32
@@ -208,6 +214,14 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def paired_ms(fa, fb, iters: int):
+    """(mean ms of ``fa``, of ``fb``), each the mean of two ``cuda_ms``
+    runs taken in turns a, b, b, a on the same card."""
+    a1, b1 = cuda_ms(fa, iters), cuda_ms(fb, iters)
+    b2, a2 = cuda_ms(fb, iters), cuda_ms(fa, iters)
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
 def bound_ms(n_bytes: int, flops: float):
     """(least ms, what bounds it): ``n_bytes`` (each input read once, each
     output written once) over HBM bandwidth, or ``flops`` FP32 operations
@@ -220,6 +234,103 @@ def bound_ms(n_bytes: int, flops: float):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def ptxas_report(text: str, lib: str):
+    """One line per kernel of library ``lib``'s ``nvcc -Xptxas -v`` log:
+    registers, shared memory, stack and spills (a kernel named
+    ``<lib>_kernel``, with its pixels per thread where it is a template)."""
+    lines, name, spill = [], None, ""
+    for line in text.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = entry.group(1)
+            ppt = re.search(rf"{lib}_kernelILi(\d+)E", name)
+            if f"{lib}_kernel" in name:
+                name = f"{lib}_kernel" + (f"<{ppt.group(1)}>" if ppt else "")
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            lines.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+            name, spill = None, ""
+    return lines
+
+
+# kernel instantiations whose inner loops sass_floors counts: the mirror
+# kernels at the training tiles' 8 pixels a thread, the stream kernels
+# (the previous mirror design) at their 4
+SASS_KERNELS = (("B1", "mirror_fwd", "mirror_fwd_kernelILi8E"),
+                ("B2", "mirror_bwd", "mirror_bwd_kernelILi8E"),
+                ("B6f", "stream_fwd", "stream_fwd_kernelILi4E"),
+                ("B6b", "stream_bwd", "stream_bwd_kernelILi4E"))
+
+
+def sass_loops(sass: str, kernel: str):
+    """The innermost loops of ``kernel`` that evaluate an exponential:
+    [(instructions, MUFU.EX2 count, SHFL count)] from ``cuobjdump -sass``
+    text.  A loop spans a backward branch's target (a label, or an
+    address as CUDA 12.8's cuobjdump prints it) to the branch; its count
+    leaves out NOPs."""
+    code = next((part for part in sass.split("Function : ")[1:]
+                 if kernel in part.split(None, 1)[0]), None)
+    if code is None:
+        return []
+    ins, at = [], {}
+    for line in code.splitlines():
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        if label:
+            at[label.group(1)] = len(ins)
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            at[int(m.group(1), 16)] = len(ins)
+            ins.append(m.group(2))
+    loops = []
+    for k, text in enumerate(ins):
+        m = re.search(r"\bBRA\b.*?(\.L_x_\d+|0x[0-9a-f]+)", text)
+        if not m:
+            continue
+        target = m.group(1)
+        lo = at.get(target if target.startswith(".") else int(target, 16))
+        if lo is not None and lo <= k:
+            loops.append((lo, k))
+
+    def count(op, a, b):
+        return sum(op in t for t in ins[a:b + 1])
+
+    out = []
+    for lo, hi in loops:
+        inner = any(lo <= lo2 and hi2 <= hi and (lo2, hi2) != (lo, hi)
+                    and count("MUFU.EX2", lo2, hi2) for lo2, hi2 in loops)
+        if count("MUFU.EX2", lo, hi) and not inner:
+            out.append((sum("NOP" not in t.split() for t in ins[lo:hi + 1]),
+                        count("MUFU.EX2", lo, hi), count("SHFL", lo, hi)))
+    return out
+
+
+def sass_floors(build):
+    """Issued-instruction floor per evaluated (copy, pixel) pair of the
+    compositing kernels' inner loops: static SASS instructions of each
+    innermost loop that evaluates alphas over its MUFU.EX2 count (one per
+    pair).  A design that walks a chunk twice has a loop per walk, and
+    the compiler may keep a copy of a loop per view (forward, flip), so
+    the line lists every loop.  Prints "not measured" without
+    ``cuobjdump``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not pathlib.Path(tool).exists():
+        log("sass: cuobjdump not found; instructions per pair not measured")
+        return
+    for label, lib, kernel in SASS_KERNELS:
+        sass = subprocess.run([tool, "-sass", str(build._target(lib))],
+                              capture_output=True, text=True).stdout
+        loops = sass_loops(sass, kernel)
+        if not loops:
+            log(f"sass: {label} ({kernel}): no loop found; not measured")
+            continue
+        log(f"sass: {label} ({kernel}): inner loops (instructions, "
+            f"MUFU.EX2, SHFL) {loops}: " + ", ".join(
+                f"{n / ex2:.1f}" for n, ex2, _ in loops)
+            + " instructions per pair")
 
 
 def synthetic_tiles(settings, seed: int, device):
@@ -306,13 +417,18 @@ def mirror_check(mirror, settings, attrs, lists, counts, label):
     g_out = torch.randn(out_p.shape, generator=gen, device="cuda")
     # both versions replay from the same checkpoints, so they stop on the
     # same chunks
-    gr_k = mirror.mirror_bwd_cuda(settings, attrs, lists, counts, chk_p,
-                                  g_out)
+    gr_k = mirror.mirror_bwd_cuda(settings, attrs, lists, counts, out_p,
+                                  chk_p, g_out)
+    gr_k2 = mirror.mirror_bwd_cuda(settings, attrs, lists, counts, out_p,
+                                   chk_p, g_out)
     gr_p, pairs_b = mirror.mirror_bwd_plain(settings, attrs, lists, counts,
                                             chk_p, g_out)
     torch.cuda.synchronize()
     if not torch.isfinite(gr_k).all():
         raise AssertionError(f"{label}: B2 gave non-finite gradients")
+    if not torch.equal(gr_k, gr_k2):
+        raise AssertionError(f"{label}: two B2 launches on the same inputs "
+                             f"gave different per-copy rows")
     bwd_err = bwd_rel_err(gr_k, gr_p, 1)
     bwd_abs = float((gr_k - gr_p).abs().max())
     for per_view in (False, True):
@@ -335,7 +451,8 @@ def mirror_check(mirror, settings, attrs, lists, counts, label):
         f"B1 max |kernel - plain| {fwd_err:.3e} (limit {MAX_ABS_ERR:.0e}); "
         f"B2 max |kernel - plain| / max |plain| {bwd_err:.3e} (limit "
         f"{BWD_REL_ERR:.0e}; max |kernel - plain| {bwd_abs:.3e}; per-copy "
-        f"rows and the scatter with and without means2d)")
+        f"rows and the scatter with and without means2d; two launches "
+        f"bit-identical)")
     return fwd_err, bwd_abs, pairs_f, pairs_b, (out_p, chk_p, g_out, gr_p)
 
 
@@ -346,7 +463,8 @@ def mirror_times(mirror, settings, attrs, lists, counts, aux, pairs_f,
     f_ms = cuda_ms(lambda: mirror.mirror_fwd_cuda(settings, attrs, lists,
                                                   counts), 10)
     b_ms = cuda_ms(lambda: mirror.mirror_bwd_cuda(settings, attrs, lists,
-                                                  counts, chk_p, g_out), 5)
+                                                  counts, out_p, chk_p,
+                                                  g_out), 5)
     f_plain = cuda_ms(lambda: mirror.mirror_fwd_plain(settings, attrs,
                                                       lists, counts), 1)
     b_plain = cuda_ms(lambda: mirror.mirror_bwd_plain(
@@ -1202,8 +1320,8 @@ def stream_check(stream, mirror, settings, attrs, bins, lists, counts,
     # (b) the stream kernels against the mirror kernels, each pair on its
     # own forward's checkpoints, both backwards scattered to the gaussians
     out_1, chk_1 = mirror.mirror_fwd_cuda(settings, attrs, lists, counts)
-    gr_2 = mirror.mirror_bwd_cuda(settings, attrs, lists, counts, chk_1,
-                                  g_out)
+    gr_2 = mirror.mirror_bwd_cuda(settings, attrs, lists, counts, out_1,
+                                  chk_1, g_out)
     gr_6 = stream.stream_bwd_cuda(settings, rows, *bins, out_k, chk_k,
                                   g_out)
     torch.cuda.synchronize()
@@ -1238,25 +1356,27 @@ def stream_times(stream, mirror, settings, attrs, bins, lists, counts, chk,
     """Kernel and plain times of B6f and B6b on one stream against their
     bounds, and B1/B2's kernel times on the same copies."""
     rows, out_p, chk_p, g_out = chk["aux"]
-    f_ms = cuda_ms(lambda: stream.stream_fwd_cuda(settings, rows, *bins),
-                   10)
-    b_ms = cuda_ms(lambda: stream.stream_bwd_cuda(
-        settings, rows, *bins, out_p, chk_p, g_out), 5)
+    out_1, chk_1 = mirror.mirror_fwd_cuda(settings, attrs, lists, counts)
+    # each B1/B2 time beside its B6 counterpart's on the same copies,
+    # taken in turns (B6, B1/B2, B1/B2, B6)
+    f_ms, b1_ms = paired_ms(
+        lambda: stream.stream_fwd_cuda(settings, rows, *bins),
+        lambda: mirror.mirror_fwd_cuda(settings, attrs, lists, counts), 10)
+    b_ms, b2_ms = paired_ms(
+        lambda: stream.stream_bwd_cuda(settings, rows, *bins, out_p, chk_p,
+                                       g_out),
+        lambda: mirror.mirror_bwd_cuda(settings, attrs, lists, counts,
+                                       out_1, chk_1, g_out), 5)
     f_plain = cuda_ms(lambda: stream.stream_fwd_plain(settings, rows,
                                                       *bins), 1)
     b_plain = cuda_ms(lambda: stream.stream_bwd_plain(
         settings, rows, *bins, out_p, chk_p, g_out), 1)
-    _, chk_1 = mirror.mirror_fwd_cuda(settings, attrs, lists, counts)
-    b1_ms = cuda_ms(lambda: mirror.mirror_fwd_cuda(settings, attrs, lists,
-                                                   counts), 10)
-    b2_ms = cuda_ms(lambda: mirror.mirror_bwd_cuda(
-        settings, attrs, lists, counts, chk_1, g_out), 5)
     fb, bb = stream_bounds(settings, bins, chk["pairs_f"], chk["pairs_b"])
-    log(f"{label}: B6f kernel {f_ms:.4f} ms (B1 {b1_ms:.4f}), plain "
-        f"{f_plain:.3f} ms, bound {fb[0]:.4f} ms ({fb[1]}; "
-        f"{chk['pairs_f']} pairs); B6b kernel {b_ms:.4f} ms (B2 "
-        f"{b2_ms:.4f}), plain {b_plain:.3f} ms, bound {bb[0]:.4f} ms "
-        f"({bb[1]}; {chk['pairs_b']} pairs)")
+    log(f"{label}: B6f kernel {f_ms:.4f} ms (B1 {b1_ms:.4f}, B1/B6f "
+        f"{b1_ms / f_ms:.3f}), plain {f_plain:.3f} ms, bound {fb[0]:.4f} ms "
+        f"({fb[1]}; {chk['pairs_f']} pairs); B6b kernel {b_ms:.4f} ms (B2 "
+        f"{b2_ms:.4f}, B2/B6b {b2_ms / b_ms:.3f}), plain {b_plain:.3f} ms, "
+        f"bound {bb[0]:.4f} ms ({bb[1]}; {chk['pairs_b']} pairs)")
     return (dict(ms=f_ms, plain_ms=f_plain, bound_ms=fb[0], bound_by=fb[1],
                  b1_ms=b1_ms),
             dict(ms=b_ms, plain_ms=b_plain, bound_ms=bb[0], bound_by=bb[1],
@@ -1739,9 +1859,9 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.2f} s wall (nvcc and host "
         f"compiler started together)")
     for name, text in logs.items():
-        for line in text.splitlines():
-            if "entry function" in line or "registers" in line:
-                log(f"  {name}: {line.strip()}")
+        for line in ptxas_report(text, name):
+            log(f"  {name}: {line}")
+    sass_floors(build)
 
     settings = RasterSettings(image_height=1080, image_width=1920,
                               threshold=0.1, tile_h=16, tile_w=128,

@@ -9,35 +9,48 @@
 // writes the output tile mirror(u).  Output rows are in view order (f0 fwd, f0 flip,
 // f1 fwd, f1 flip).  It saves the transmittance before every composite position
 // (t_chk [2F*T, n_chunks + 1, P]; positions after the per-tile early stop hold the
-// final T, slot n_chunks the exact final T) for kernel B2's reverse replay.  The
-// Python wrapper is gsvc_tpu_torch/render/mirror.py, whose plain PyTorch version
-// computes the same function.
+// final T, slot n_chunks the exact final T) for kernel B2's replay.  The Python
+// wrapper is gsvc_tpu_torch/render/mirror.py, whose plain PyTorch version computes the
+// same function.
 //
-// What bounds it on an H100: arithmetic.  Each evaluated (copy, pixel) pair costs an
-// alpha (quadratic form, expf) and one compositing step, ~25 FP32 operations, while a
-// tile reads 36 B per copy once (shared by its 1024 pixels) and writes 4 + n_chunks + 1
-// floats per pixel.
+// What bounds it on an H100: issued FP32 instructions.  Each evaluated (copy, pixel)
+// pair costs an alpha (quadratic form, expf) and one compositing step, ~25 FP32
+// operations; the alpha's products and sums are rounded one by one (no FMA: ALPHA_MIN
+// is a 1/255 step a one-ulp difference could cross), so each is one issue slot and the
+// floor in issued instructions sits ~2x above the FLOP bound.  A tile reads 36 B per
+// copy once (shared by its 1024 pixels) and writes 4 + n_chunks + 1 floats per pixel.
 //
 // What the design does about it: one block per (data tile, view) step; each thread owns
-// PPT pixels and keeps their transmittance and colour sums in registers.  Each chunk of
-// <= 128 copies is gathered from the [M, 9] rows into shared memory once (tile-local
-// means, conic pre-scaled by -1/2) and read as broadcasts.  The TPU kernel's log-space
-// triangular-matmul cumsum (a Mosaic workaround) becomes a per-pixel running product
-// inside the chunk (t_before = T_carry * E, E *= 1 - alpha), the structure of the TPU
-// kernel's t_carry * excl.  Loop stops are per tile and chunk-granular
-// (__syncthreads_or), as the TPU kernel's while-loop.  The alpha is computed without
-// FMA contraction, in the plain version's order (see alpha_at).  The two views of a
-// data tile are independent blocks: the forward writes no shared row.
-#include "composite.cuh"
+// one pixel column of the tile (threads a multiple of tile_w; 128 threads x 8 pixels at
+// 8x128 tiles) and keeps the column's transmittance and colour sums in registers.  The
+// column shares x, so a copy's x terms of the alpha (x - mean x and its two conic
+// products) are formed once per thread instead of once per pixel (replay.cuh
+// alpha_col: the same rounded operations as alpha_at).  The chunks are pipelined: while
+// the block composites chunk p, cp.async gathers chunk p + 1's rows from the [M, 9]
+// rows into the other of two shared-memory stages and chunk p + 2's ids into the other
+// of two id buffers; the issuing thread makes its own rows tile-local after they land,
+// and the one barrier per chunk (the __syncthreads_or of the early stop) publishes
+// them.  A copy is read from the stage with three vector loads.  The TPU kernel's
+// log-space triangular-matmul cumsum (a Mosaic workaround) becomes a per-pixel running
+// product inside the chunk (t_before = T_carry * E, E *= 1 - alpha).  Loop stops are per
+// tile and chunk-granular, as the TPU kernel's while-loop.  The two views of a data tile
+// are independent blocks: the forward writes no shared row.
+#include "replay.cuh"
 
 namespace {
 
-using gsvc::Chunk;
-using gsvc::alpha_at;
+using gsvc::Column;
+using gsvc::Stage;
+using gsvc::alpha_col;
+using gsvc::column_at;
+using gsvc::cp_async_commit;
+using gsvc::cp_async_wait_all;
+using gsvc::finish_rows;
 using gsvc::kMaxChunk;
 using gsvc::kMaxThreads;
 using gsvc::kTEps;
-using gsvc::load_chunk;
+using gsvc::stage_ids;
+using gsvc::stage_rows;
 
 template <int PPT>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -45,7 +58,8 @@ mirror_fwd_kernel(const float* __restrict__ attrs, const int* __restrict__ lists
                   const int* __restrict__ counts, float* __restrict__ out,
                   float* __restrict__ tchk, int m, int n_tiles, int n_tiles_x, int tile_w,
                   int cap, int chunk, float bg) {
-  __shared__ Chunk s;
+  __shared__ Stage st[2];
+  __shared__ int ids[2][kMaxChunk];
   const int g = blockIdx.x;            // grid step (f * T + u) * 2 + v
   const int d = g >> 1;                // data tile row f * T + u
   const int v = g & 1;                 // 0: forward view, 1: flip view
@@ -63,15 +77,29 @@ mirror_fwd_kernel(const float* __restrict__ attrs, const int* __restrict__ lists
   const int n_used = min((counts[d] + chunk - 1) / chunk, n_chunks);
   float* tc = tchk + static_cast<size_t>(out_row) * (n_chunks + 1) * p_pix;
 
-  float xs[PPT], ys[PPT], t[PPT], acc[PPT][3];
+  // pixel k of this thread: lin = threadIdx.x + k * blockDim.x, all in one column
+  const float x0 = static_cast<float>(threadIdx.x % tile_w) - (tile_w - 1) / 2.0f;
+  const float x = v ? -x0 : x0;
+  float ys[PPT], t[PPT], acc[PPT][3];
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
     const int lin = threadIdx.x + k * blockDim.x;
-    const float x = static_cast<float>(lin % tile_w) - (tile_w - 1) / 2.0f;
-    xs[k] = v ? -x : x;
     ys[k] = static_cast<float>(lin / tile_w) - (tile_h - 1) / 2.0f;
     t[k] = 1.0f;
     acc[k][0] = acc[k][1] = acc[k][2] = 0.0f;
+  }
+
+  // data chunk at composite position q
+  auto chunk_at = [&](int q) { return v ? n_used - 1 - q : q; };
+  if (n_used > 0) {
+    stage_ids(ids[0], list, chunk_at(0), chunk);
+    cp_async_commit();
+    cp_async_wait_all();
+    stage_rows(st[0], ids[0], rows, chunk, m);
+    if (n_used > 1) stage_ids(ids[1], list, chunk_at(1), chunk);
+    cp_async_commit();
+    cp_async_wait_all();
+    finish_rows(st[0], ids[0], chunk, m, cx, cy);
   }
 
   int p = 0;
@@ -79,32 +107,38 @@ mirror_fwd_kernel(const float* __restrict__ attrs, const int* __restrict__ lists
     int live = 0;
 #pragma unroll
     for (int k = 0; k < PPT; ++k) live |= t[k] >= kTEps;
-    if (!__syncthreads_or(live)) break;  // also: stage reads of chunk p-1 are done
+    // publishes stage p and ids p + 1; the reads of stage p - 1 are done
+    if (!__syncthreads_or(live)) break;
 #pragma unroll
     for (int k = 0; k < PPT; ++k) tc[p * p_pix + threadIdx.x + k * blockDim.x] = t[k];
-    load_chunk(s, rows, list, v ? n_used - 1 - p : p, chunk, m, cx, cy);
-    __syncthreads();
+    const int b = p & 1;
+    if (p + 1 < n_used) stage_rows(st[b ^ 1], ids[b ^ 1], rows, chunk, m);
+    if (p + 2 < n_used) stage_ids(ids[b], list, chunk_at(p + 2), chunk);
+    cp_async_commit();
+
+    const Stage& s = st[b];
     float e[PPT];
 #pragma unroll
     for (int k = 0; k < PPT; ++k) e[k] = 1.0f;
     for (int j = 0; j < chunk; ++j) {
-      const int i = v ? chunk - 1 - j : j;
-      const float cr = s.r[i], cg = s.g[i], cb = s.b[i];
+      const Column c = column_at(s, v ? chunk - 1 - j : j, x);
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
-        const float a = alpha_at(s, i, xs[k], ys[k]).a;
+        const float a = alpha_col(c, ys[k]).a;
         const float tb = t[k] * e[k];
         if (tb >= kTEps) {
           const float w = a * tb;
-          acc[k][0] += w * cr;
-          acc[k][1] += w * cg;
-          acc[k][2] += w * cb;
+          acc[k][0] += w * c.r;
+          acc[k][1] += w * c.g;
+          acc[k][2] += w * c.b;
         }
         e[k] *= 1.0f - a;
       }
     }
 #pragma unroll
     for (int k = 0; k < PPT; ++k) t[k] *= e[k];
+    cp_async_wait_all();
+    if (p + 1 < n_used) finish_rows(st[b ^ 1], ids[b ^ 1], chunk, m, cx, cy);
   }
 
 #pragma unroll
@@ -121,17 +155,17 @@ mirror_fwd_kernel(const float* __restrict__ attrs, const int* __restrict__ lists
 }  // namespace
 
 // Launches one block per (data tile, view) step on `stream`: 2 * n_frames * n_tiles
-// blocks.  Pointers are device pointers: attrs [n_frames, m, 9] f32, lists
-// [n_frames * n_tiles, cap] i32 (-1 padded), counts [n_frames * n_tiles] i32,
-// out [2 * n_frames * n_tiles, 4, threads * ppt] f32,
-// tchk [2 * n_frames * n_tiles, cap / chunk + 1, threads * ppt] f32.
+// blocks of `threads` threads (a multiple of tile_w) with `ppt` pixels each.  Pointers
+// are device pointers: attrs [n_frames, m, 9] f32, lists [n_frames * n_tiles, cap] i32
+// (-1 padded), counts [n_frames * n_tiles] i32, out [2 * n_frames * n_tiles, 4,
+// threads * ppt] f32, tchk [2 * n_frames * n_tiles, cap / chunk + 1, threads * ppt] f32.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int mirror_forward(const float* attrs, const int* lists, const int* counts,
                               float* out, float* tchk, int n_frames, int m, int n_tiles,
                               int n_tiles_x, int tile_w, int cap, int chunk, int threads,
                               int ppt, float bg, void* stream) {
   if (chunk <= 0 || chunk > kMaxChunk || cap % chunk != 0 || threads <= 0 ||
-      threads > kMaxThreads || tile_w <= 0 || (threads * ppt) % tile_w != 0)
+      threads > kMaxThreads || tile_w <= 0 || threads % tile_w != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = 2 * n_frames * n_tiles;
   if (blocks == 0) return 0;

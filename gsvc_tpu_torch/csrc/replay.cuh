@@ -1,0 +1,223 @@
+// Pieces of the mirror kernels B1 (mirror_fwd.cu) and B2 (mirror_bwd.cu) as laid out
+// for Hopper, written so that the other tile-compositing backwards (B5b, B6b) can take
+// them too:
+//
+//   * Stage: one chunk of a tile's copies in shared memory, 48 B per copy, filled by
+//     cp.async straight from the [m, 9] rows (no registers, no wait until the data is
+//     needed) and read back with three vector loads;
+//   * Column: a copy as seen by one thread of a block whose pixels all lie in one tile
+//     column (threads a multiple of tile_w), with the x terms of the alpha formed once
+//     per copy instead of once per pixel;
+//   * replay_chunk: B2's per-pixel loop over one staged chunk, walking the copies in
+//     composite order with one alpha evaluation per (copy, pixel), and its per-copy
+//     warp reduction.
+//
+// Every product and sum before the alpha is rounded on its own, in alpha_at's order
+// (composite.cuh), so the alphas equal alpha_at's bit for bit.
+#pragma once
+
+#include "composite.cuh"
+
+namespace gsvc {
+
+constexpr int kSums = 9;  // dq * (1, d0, d1, d0^2, d0 d1, d1^2), w * (r, g, b)
+constexpr int kMaxWarps = kMaxThreads / 32;
+
+// One chunk of copies: v[i][0] = (mean x, mean y, conic a, conic b), v[i][1] = (conic
+// c, opacity, r, g), v[i][2].x = b; tile-local means and conic * -1/2 once finished.
+struct Stage {
+  float4 v[kMaxChunk][3];
+};
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool fill) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(fill ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Issues the copy of data chunk c's ids into ids[0, chunk).  Slot i belongs to thread
+// i mod blockDim.x here and in stage_rows/finish_rows, so no barrier orders them.
+__device__ __forceinline__ void stage_ids(int* ids, const int* __restrict__ list, int c,
+                                          int chunk) {
+  for (int i = threadIdx.x; i < chunk; i += blockDim.x)
+    cp_async4(ids + i, list + static_cast<size_t>(c) * chunk + i, true);
+}
+
+// Issues the gather of the rows of `ids` (already landed) into the stage; a padding id
+// (-1, or out of range) reads nothing and leaves a row of zeros.
+__device__ __forceinline__ void stage_rows(Stage& st, const int* ids,
+                                          const float* __restrict__ rows, int chunk,
+                                          int m) {
+  for (int i = threadIdx.x; i < chunk; i += blockDim.x) {
+    const int id = ids[i];
+    const bool ok = id >= 0 && id < m;
+    const float* row = rows + (ok ? static_cast<size_t>(id) * 9 : 0);
+    float* dst = &st.v[i][0].x;
+#pragma unroll
+    for (int q = 0; q < 9; ++q) cp_async4(dst + q, row + q, ok);
+  }
+}
+
+// After cp_async_wait_all: makes the calling thread's staged rows tile-local (cx, cy the
+// tile centre) with the conic scaled by -1/2, as load_chunk stages them; padding rows
+// stay all zero (opacity 0).
+__device__ __forceinline__ void finish_rows(Stage& st, const int* ids, int chunk, int m,
+                                           float cx, float cy) {
+  for (int i = threadIdx.x; i < chunk; i += blockDim.x) {
+    const int id = ids[i];
+    if (id >= 0 && id < m) {
+      float4& p = st.v[i][0];
+      p.x -= cx;
+      p.y -= cy;
+      p.z *= -0.5f;
+      p.w *= -0.5f;
+      st.v[i][1].x *= -0.5f;
+    }
+  }
+}
+
+// Copy i as seen from tile-local column x: the x terms of the quadratic form, formed
+// once for all the thread's pixels.
+struct Column {
+  float my, hb, hc, op, r, g, b;
+  float d0;        // x - mean x
+  float had0;      // (conic a * -1/2) d0
+  float hbd0;      // (conic b * -1/2) d0
+};
+
+__device__ __forceinline__ Column column_at(const Stage& st, int i, float x) {
+  const float4 p = st.v[i][0], q = st.v[i][1];
+  Column c;
+  c.my = p.y;
+  c.hb = p.w;
+  c.hc = q.x;
+  c.op = q.y;
+  c.r = q.z;
+  c.g = q.w;
+  c.b = st.v[i][2].x;
+  c.d0 = __fsub_rn(x, p.x);
+  c.had0 = __fmul_rn(p.z, c.d0);
+  c.hbd0 = __fmul_rn(p.w, c.d0);
+  return c;
+}
+
+// alpha_at for the column's copy at tile-local row y: the same rounded operations in
+// the same order, with the x terms taken from the column.
+__device__ __forceinline__ Alpha alpha_col(const Column& c, float y) {
+  Alpha r;
+  r.d0 = c.d0;
+  r.d1 = __fsub_rn(y, c.my);
+  const float u = __fadd_rn(c.had0, __fmul_rn(c.hb, r.d1));
+  const float v = __fadd_rn(c.hbd0, __fmul_rn(c.hc, r.d1));
+  const float q = __fadd_rn(__fmul_rn(c.d0, u), __fmul_rn(r.d1, v));
+  const float raw = __fmul_rn(c.op, expf(q));
+  const float a = fminf(raw, kAlphaMax);
+  const bool ge_min = a >= kAlphaMin;
+  r.a = ge_min ? a : 0.0f;
+  r.act = ge_min && raw < kAlphaMax;
+  return r;
+}
+
+// A thread's replay state: its PPT pixels (tile-local rows y0 + k dy of column x).
+template <int PPT>
+struct Pixels {
+  float x, y0, dy;
+  float t0[PPT];     // transmittance before the chunk (t_chk)
+  float g[PPT][3];   // dL/d rgb
+  float s[PPT];      // t_final g_T + g . out_rgb: the suffix total
+  float pre[PPT];    // running sum of w (c . g) over the copies walked so far
+};
+
+// The sums of two copies (a: lanes 0-15 end up with it, b: lanes 16-31) over the warp:
+// one exchange that swaps halves (each lane keeps one copy), then a butterfly within
+// each half, so a lane reduces 9 values where it would reduce 18.  Fixed order:
+// deterministic.
+__device__ __forceinline__ void reduce_pair(const float (&a)[kSums], const float (&b)[kSums],
+                                            float (&out)[kSums]) {
+  const bool hi = threadIdx.x & 16;
+#pragma unroll
+  for (int q = 0; q < kSums; ++q) {
+    const float send = hi ? a[q] : b[q];
+    float keep = hi ? b[q] : a[q];
+    keep += __shfl_xor_sync(0xffffffffu, send, 16);
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) keep += __shfl_xor_sync(0xffffffffu, keep, off);
+    out[q] = keep;
+  }
+}
+
+// B2's walk of one staged chunk by one warp, copies in composite order (j = 0.. ; slot
+// i = j, or chunk - 1 - j for a flip view), one alpha evaluation per (copy, pixel):
+//   t_before = t0 * prod_{earlier j} (1 - a)      (B1's product, so B1's liveness)
+//   live = t_before >= T_EPS,  w = live ? a t_before : 0,  gc = c . g
+//   pre += w gc,  A = s - pre                     (the suffix after the copy)
+//   dL/da = live && act ? gc t_before - A / max(1 - a, 1e-6) : 0,  dq = -a/2 dL/da
+// Each copy's 9 pixel sums go to red[q * red_stride + i] (this warp's stage), two
+// copies per warp reduction.  The walk stops after the first pair of copies past which
+// no pixel of the warp is live (T only falls, so every later term is zero).  Returns
+// the number of copies walked (in composite order); the caller reads no sums past it.
+template <int PPT>
+__device__ __forceinline__ int replay_chunk(const Stage& st, int chunk, bool flip,
+                                            Pixels<PPT>& px, float* red, int red_stride) {
+  const int lane = threadIdx.x & 31;
+  float e[PPT];
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) e[k] = 1.0f;
+  for (int j0 = 0; j0 < chunk; j0 += 2) {
+    float acc[2][kSums];
+    bool alive = false;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int q = 0; q < kSums; ++q) acc[h][q] = 0.0f;
+      const int j = j0 + h;
+      if (j >= chunk) continue;
+      const Column c = column_at(st, flip ? chunk - 1 - j : j, px.x);
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        const Alpha al = alpha_col(c, px.y0 + static_cast<float>(k) * px.dy);
+        const float tb = px.t0[k] * e[k];
+        const bool live = tb >= kTEps;
+        const float w = live ? al.a * tb : 0.0f;
+        const float gc = c.r * px.g[k][0] + c.g * px.g[k][1] + c.b * px.g[k][2];
+        px.pre[k] += w * gc;
+        const float a_i = px.s[k] - px.pre[k];
+        const float d_alpha =
+            (live && al.act) ? gc * tb - a_i / fmaxf(1.0f - al.a, 1e-6f) : 0.0f;
+        const float dq = d_alpha * al.a * -0.5f;
+        const float dq1 = dq * al.d1;
+        acc[h][0] += dq;
+        acc[h][2] += dq1;
+        acc[h][5] += dq1 * al.d1;
+        acc[h][6] += w * px.g[k][0];
+        acc[h][7] += w * px.g[k][1];
+        acc[h][8] += w * px.g[k][2];
+        e[k] *= 1.0f - al.a;
+        alive |= live;
+      }
+      // d0 is the column's: the d0 moments are the d0-free sums times d0
+      acc[h][1] = c.d0 * acc[h][0];
+      acc[h][3] = c.d0 * acc[h][1];
+      acc[h][4] = c.d0 * acc[h][2];
+    }
+    float sums[kSums];
+    reduce_pair(acc[0], acc[1], sums);
+    const int j = j0 + (lane >> 4);
+    if ((lane & 15) == 0 && j < chunk) {
+      const int i = flip ? chunk - 1 - j : j;
+#pragma unroll
+      for (int q = 0; q < kSums; ++q) red[q * red_stride + i] = sums[q];
+    }
+    // `alive` covers the pair's second copy last: no live pixel there, none after
+    if (!__any_sync(0xffffffffu, alive)) return min(j0 + 2, chunk);
+  }
+  return chunk;
+}
+
+}  // namespace gsvc

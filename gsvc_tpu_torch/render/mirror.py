@@ -19,10 +19,10 @@ f1 fwd, f1 flip), ``row = (2f + v)*T + (mirror(u) if v else u)``.
 The forward saves ``t_chk [2F*T, n_chunks + 1, P]``: the transmittance
 before every COMPOSITE position (view-direction agnostic), positions after
 the early stop filled with the final T, slot ``n_chunks`` the exact final
-T.  The backward replays the chunks in reverse from ``p_hot`` (the last
-position with a live pixel) with a suffix accumulator seeded by
-``t_final * (bg * sum(g_rgb) + g_T)``, and gives each (view, copy) its 9
-attribute gradients — mean x/y, conic a/b/c, opacity, rgb — in the
+T.  The backward replays the positions up to ``p_hot`` (the last position
+with a live pixel), each copy's suffix being everything composited after
+it plus ``t_final * (bg * sum(g_rgb) + g_T)``, and gives each (view, copy)
+its 9 attribute gradients — mean x/y, conic a/b/c, opacity, rgb — in the
 [2F*T, 9, cap] layout of the grid.  The mean and conic gradients come
 from six pixel sums of dL/dq times (1, d0, d1, d0^2, d0 d1, d1^2), with
 d = pixel - mean: the TPU kernel's pixel-basis moments taken about the
@@ -49,7 +49,8 @@ import torch
 
 from gsvc_tpu_torch.build import load
 from gsvc_tpu_torch.render.bidir import (
-    _check_inputs, _kernel_shape, check_float32,
+    BLOCK_THREADS, MAX_CHUNK, MAX_PIXELS_PER_THREAD, _check_inputs,
+    check_float32,
 )
 from gsvc_tpu_torch.render.splat import (
     ALPHA_MAX, ALPHA_MIN, T_EPS, RasterSettings,
@@ -58,6 +59,11 @@ from gsvc_tpu_torch.render.splat import (
 # grid rows per batch of the plain versions (bounds their [rows, chunk, P]
 # temporaries: ~0.5 GB each at P = 1024)
 PLAIN_BATCH = 1024
+# kernels B1/B2's block: at least MIRROR_THREADS threads, more where the
+# tile is wider or holds more than MIRROR_PPT pixels a thread (B2 spills
+# registers at 16)
+MIRROR_THREADS = 128
+MIRROR_PPT = 8
 
 
 def check_inputs(settings: RasterSettings, attrs, tile_lists, counts):
@@ -66,6 +72,28 @@ def check_inputs(settings: RasterSettings, attrs, tile_lists, counts):
     check_float32(settings)
     _check_inputs(settings, attrs, tile_lists, counts)
     return attrs.shape[0]
+
+
+def mirror_kernel_shape(settings: RasterSettings):
+    """(threads per block, pixels per thread) of kernels B1/B2.  Every
+    thread owns one pixel column of the tile (threads a multiple of
+    tile_w), so its pixels share x: at least MIRROR_THREADS threads,
+    whole warps, at most BLOCK_THREADS, at most MIRROR_PPT pixels a
+    thread where BLOCK_THREADS allows; 128 x 8 at 8x128 tiles, 256 x 8 at
+    16x128."""
+    p_pix = settings.tile_h * settings.tile_w
+    threads = min(p_pix, BLOCK_THREADS,
+                  max(MIRROR_THREADS, settings.tile_w, p_pix // MIRROR_PPT))
+    ppt = p_pix // threads
+    if (settings.chunk > MAX_CHUNK
+            or threads % 32 or threads % settings.tile_w or p_pix % threads
+            or ppt > MAX_PIXELS_PER_THREAD or ppt & (ppt - 1)):
+        raise ValueError(
+            f"kernels B1/B2 take chunk <= {MAX_CHUNK} and tiles of whole "
+            f"warps of columns, at most {BLOCK_THREADS} threads x 2^k "
+            f"pixels (k <= 4); got chunk {settings.chunk}, tile "
+            f"{settings.tile_h}x{settings.tile_w}")
+    return threads, ppt
 
 
 def grid_rows(settings: RasterSettings, f_n: int, device):
@@ -101,7 +129,7 @@ def _require_contiguous(**tensors):
 
 
 def _launch(fn, settings, f_n, m, ptrs, device):
-    threads, ppt = _kernel_shape(settings)
+    threads, ppt = mirror_kernel_shape(settings)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*ptrs, f_n, m, settings.n_tiles, settings.n_tiles_x,
@@ -130,28 +158,40 @@ def mirror_fwd_cuda(settings: RasterSettings, attrs, tile_lists, counts):
     return out4, t_chk
 
 
-def mirror_bwd_cuda(settings: RasterSettings, attrs, tile_lists, counts,
-                    t_chk, g_out):
-    """Launch kernel B2 once.  Returns per-copy gradients [2F*T, 9, cap]
-    in grid order (rows g = (f*T + u)*2 + v)."""
+def check_backward_inputs(settings: RasterSettings, attrs, tile_lists,
+                          counts, out4, t_chk, g_out):
+    """Validate kernel B2's inputs: B1's outputs ``out4`` and ``t_chk``
+    and the cotangent ``g_out``, float32 in output (view) row order."""
     f_n = check_inputs(settings, attrs, tile_lists, counts)
     p_pix = settings.tile_h * settings.tile_w
     n_grid = 2 * f_n * settings.n_tiles
     n_chunks = settings.gaussian_cap // settings.chunk
-    for name, t, shape in (("t_chk", t_chk, (n_grid, n_chunks + 1, p_pix)),
+    for name, t, shape in (("out4", out4, (n_grid, 4, p_pix)),
+                           ("t_chk", t_chk, (n_grid, n_chunks + 1, p_pix)),
                            ("g_out", g_out, (n_grid, 4, p_pix))):
         if t.dtype != torch.float32 or tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected float32 {shape}, got "
                              f"{t.dtype} {tuple(t.shape)}")
+    return f_n
+
+
+def mirror_bwd_cuda(settings: RasterSettings, attrs, tile_lists, counts,
+                    out4, t_chk, g_out):
+    """Launch kernel B2 once on B1's outputs ``out4`` and ``t_chk``.
+    Returns per-copy gradients [2F*T, 9, cap] in grid order (rows
+    g = (f*T + u)*2 + v)."""
+    f_n = check_backward_inputs(settings, attrs, tile_lists, counts, out4,
+                                t_chk, g_out)
     _require_contiguous(attrs=attrs, tile_lists=tile_lists, counts=counts,
-                        t_chk=t_chk, g_out=g_out)
-    grads = torch.empty((n_grid, 9, settings.gaussian_cap),
+                        out4=out4, t_chk=t_chk, g_out=g_out)
+    grads = torch.empty((2 * f_n * settings.n_tiles, 9,
+                         settings.gaussian_cap),
                         dtype=torch.float32, device=attrs.device)
-    _launch(_lib("mirror_bwd", "mirror_backward", 6), settings, f_n,
+    _launch(_lib("mirror_bwd", "mirror_backward", 7), settings, f_n,
             attrs.shape[1],
             (attrs.data_ptr(), tile_lists.data_ptr(), counts.data_ptr(),
-             t_chk.data_ptr(), g_out.data_ptr(), grads.data_ptr()),
-            attrs.device)
+             out4.data_ptr(), t_chk.data_ptr(), g_out.data_ptr(),
+             grads.data_ptr()), attrs.device)
     return grads
 
 
@@ -178,16 +218,19 @@ mirror_forward.launches = 0
 
 
 def mirror_backward(settings: RasterSettings, attrs, tile_lists, counts,
-                    t_chk, g_out):
-    """Per-copy gradients [2F*T, 9, cap] (grid order).  CUDA tensors
-    launch kernel B2 (and add one to ``mirror_backward.launches``); CPU
-    tensors take the plain version; any other device raises."""
+                    out4, t_chk, g_out):
+    """Per-copy gradients [2F*T, 9, cap] (grid order) from the forward's
+    ``out4`` and ``t_chk``.  CUDA tensors launch kernel B2 (and add one
+    to ``mirror_backward.launches``); CPU tensors take the plain version,
+    which needs no ``out4``; any other device raises."""
     if attrs.is_cuda:
-        res = mirror_bwd_cuda(settings, attrs, tile_lists, counts, t_chk,
-                              g_out)
+        res = mirror_bwd_cuda(settings, attrs, tile_lists, counts, out4,
+                              t_chk, g_out)
         mirror_backward.launches += 1
         return res
     if attrs.device.type == "cpu":
+        check_backward_inputs(settings, attrs, tile_lists, counts, out4,
+                              t_chk, g_out)
         grads, _ = mirror_bwd_plain(settings, attrs, tile_lists, counts,
                                     t_chk, g_out)
         return grads
@@ -246,17 +289,17 @@ class _MirrorComposite(torch.autograd.Function):
             timer.mark("b1_end")
         ctx.settings, ctx.timer = settings, timer
         ctx.per_view = m2d is not None
-        ctx.save_for_backward(attrs, tile_lists, counts, t_chk)
+        ctx.save_for_backward(attrs, tile_lists, counts, out4, t_chk)
         return out4
 
     @staticmethod
     def backward(ctx, g_out):
-        attrs, tile_lists, counts, t_chk = ctx.saved_tensors
+        attrs, tile_lists, counts, out4, t_chk = ctx.saved_tensors
         timer = ctx.timer
         if timer is not None:
             timer.mark("b2_start")
         grads = mirror_backward(ctx.settings, attrs, tile_lists, counts,
-                                t_chk, g_out.contiguous())
+                                out4, t_chk, g_out.contiguous())
         d_attrs, d_m2d = scatter_grads(ctx.settings, grads, tile_lists,
                                        attrs.shape[1], ctx.per_view)
         if timer is not None:

@@ -11,10 +11,14 @@ Forward tolerance (B4, B1): 2 T_EPS — both versions run the same
 chunk-granular loop stops and differ by float rounding, except where a
 pixel's transmittance rounds across T_EPS on one side only (one term of
 weight < T_EPS per view).  Backward tolerance (B2): 2e-3 of the largest
-gradient magnitude of each attribute — the kernel forms each in-chunk
-suffix as the chunk's sum minus a running prefix, the plain version by a
-reverse cumsum, and 1/(1 - alpha) amplifies that rounding up to 100x;
-the pixel sums are also taken in other orders.
+gradient magnitude of each attribute — the kernel forms each suffix as
+the colour total of the forward's out4 minus a running sum, the plain
+version by a reverse cumsum, and 1/(1 - alpha) amplifies that rounding up
+to 100x; the pixel sums are also taken in other orders.  B2 adds no float
+atomics: two launches on the same inputs give the same bits.  Besides the
+seeded tiles, B1/B2 take the replay cases of
+tests/test_torch_mirror_replay.py: a tile whose T underflows to 0 inside
+a replayed chunk, a warp dead from position 1 on, 8x128 tiles.
 
 Single-view kernels B5f/B5b (widths that are not a multiple of tile_w):
 the forward and checkpoints to 2 T_EPS, the gradients to 2e-3 of each
@@ -45,6 +49,7 @@ from gsvc_tpu_torch.render import bidir, mirror, stream, tile
 from gsvc_tpu_torch.render.splat import (
     T_EPS, RasterSettings, gather_tile_planes_rows,
 )
+from test_torch_mirror_replay import _case as replay_case
 
 SMALL = RasterSettings(image_height=40, image_width=48, threshold=0.15,
                        tile_h=8, tile_w=16, gaussian_cap=64, chunk=16,
@@ -139,14 +144,27 @@ def _check_bwd(got, want):
         assert err <= BWD_REL * max(scale, 1e-12), (k, err, scale)
 
 
+def _mirror_case(shape, opacity_hi):
+    """(settings, attrs, lists, counts) on the card: seeded tiles at the
+    small, training or 16x128 decode shapes (B1/B2 at 128 x 1, 128 x 8 and
+    256 x 8 threads x pixels), or a replay case (saturated, dead_warp,
+    wide) of tests/test_torch_mirror_replay.py."""
+    if shape in ("small", "train", "decode"):
+        settings = {"small": SMALL, "train": TRAIN, "decode": DECODE}[shape]
+        return (settings, *_frames(settings, 3, opacity_hi))
+    settings, attrs, lists, counts = replay_case(shape)
+    return settings, attrs.cuda(), lists.cuda(), counts.cuda()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", ["small", "train"])
-@pytest.mark.parametrize("opacity_hi", [0.1, 0.99])
+@pytest.mark.parametrize("shape, opacity_hi", [
+    ("small", 0.1), ("small", 0.99), ("train", 0.1), ("train", 0.99),
+    ("decode", 0.99), ("saturated", None), ("dead_warp", None),
+    ("wide", None)])
 def test_mirror_kernels_match_plain(shape, opacity_hi):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    settings = SMALL if shape == "small" else TRAIN
-    attrs, lists, counts = _frames(settings, 3, opacity_hi)
+    settings, attrs, lists, counts = _mirror_case(shape, opacity_hi)
     before = mirror.mirror_forward.launches
     out_k, chk_k = mirror.mirror_forward(settings, attrs, lists, counts)
     assert mirror.mirror_forward.launches == before + 1
@@ -159,13 +177,40 @@ def test_mirror_kernels_match_plain(shape, opacity_hi):
     g = torch.randn(out_p.shape, device="cuda",
                     generator=torch.Generator("cuda").manual_seed(4))
     before = mirror.mirror_backward.launches
-    gr_k = mirror.mirror_backward(settings, attrs, lists, counts, chk_p, g)
+    gr_k = mirror.mirror_backward(settings, attrs, lists, counts, out_p,
+                                  chk_p, g)
     assert mirror.mirror_backward.launches == before + 1
     gr_p, _ = mirror.mirror_bwd_plain(settings, attrs, lists, counts, chk_p,
                                       g)
     torch.cuda.synchronize()
     assert torch.isfinite(gr_k).all()
     _check_bwd(gr_k, gr_p)
+    # on B1's own outputs, as the autograd function runs it
+    gr_1 = mirror.mirror_backward(settings, attrs, lists, counts, out_k,
+                                  chk_k, g)
+    gr_p1, _ = mirror.mirror_bwd_plain(settings, attrs, lists, counts, chk_k,
+                                       g)
+    torch.cuda.synchronize()
+    _check_bwd(gr_1, gr_p1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["train", "saturated"])
+def test_mirror_backward_is_deterministic(shape):
+    """Two B2 launches on the same inputs give bit-identical per-copy
+    rows (fixed-order reductions, no float atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    settings, attrs, lists, counts = _mirror_case(shape, 0.99)
+    out, chk = mirror.mirror_forward(settings, attrs, lists, counts)
+    g = torch.randn(out.shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(6))
+    first = mirror.mirror_backward(settings, attrs, lists, counts, out, chk,
+                                   g)
+    second = mirror.mirror_backward(settings, attrs, lists, counts, out, chk,
+                                    g)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
