@@ -57,9 +57,13 @@
    training pair's inputs against their bounds.
 6. Hash-grid phase: kernels B3f/B3b (``hashgrid_forward`` /
    ``hashgrid_backward``) against their plain versions on the fitted
-   state's STE-binarised table, at (a) the union window of the frame pair
-   299-300 (the inputs of a training step's context query) and (b) the
-   whole anchor capacity (the estimate's query), timed with their bounds.
+   state's STE-binarised table (B3f bit for bit), at (a) the union window
+   of the frame pair 299-300 (the inputs of a training step's context
+   query) and (b) the whole anchor capacity (the estimate's query).  Each
+   kernel's own device time (torch.profiler's CUPTI kernel durations),
+   all device work of its wrapper's call, the call back to back (CUDA
+   events), the host time of a call and the bound; B3b's global atomic
+   count, and what combining the adds per row in a block would leave.
 7. Tile-kernel phase (run right after step 3's kernels): kernels B5f/B5b
    (``tile_forward`` / ``tile_backward``, the single-view composite that
    serves frame widths that are not a multiple of tile_w) against their
@@ -108,7 +112,9 @@
    losses must be finite, and results.json must hold bpp > 0 and a finite
    decoded PSNR.  Then B5f/B5b against their plain versions on the
    fitted state's pair 299-300 (its four views' planes), timed.
-11. Prints the kernel table as one JSON line, then the result line.
+11. Prints the kernel table as one JSON line (``ms``: the wrapper's
+   call, 20 back to back under CUDA events; ``kernel_ms``, B3f/B3b
+   only: the kernel alone), then the result line.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 Frames are written nowhere; the checkpoint goes to a temporary directory.
@@ -190,9 +196,9 @@ FLOPS_PER_BWD_PAIR = 49
 # the largest gradient magnitude (the table gradient is an atomic float32
 # sum of up to ~10^3 terms per row in an order that changes from run to
 # run; the position gradient is formed as sum_c r_c dw_c, autograd takes
-# the terms apart).  The forward is exact (MAX_HASH_FWD_ERR guards it).
+# the terms apart).  The forward is exact: kernel and plain version must
+# agree bit for bit.
 HASH_BWD_REL_ERR = 1e-4
-MAX_HASH_FWD_ERR = 1e-6
 
 
 def log(*args):
@@ -212,6 +218,61 @@ def cuda_ms(fn, iters: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def profiled_ms(fn, iters: int, tries: int = 3) -> dict:
+    """{device activity name: (mean device ms a launch, launches)} over
+    ``iters`` calls of ``fn`` after one warm-up call: the durations of
+    the CUDA kernels and memsets that CUPTI records (``torch.profiler``;
+    the host side's launch events, which carry their kernels' time too,
+    are left out).  A profile that holds no device activity at all (seen
+    once in a run on the H100) is taken again, up to ``tries`` times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        times = {e.key: (e.device_time_total / e.count / 1e3, e.count)
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and e.device_time_total > 0}
+        if times:
+            return times
+        log("torch.profiler recorded no device activity; profiling again")
+    raise AssertionError(f"torch.profiler recorded no device activity in "
+                         f"{tries} profiles")
+
+
+def kernel_ms(fn, kernel: str, iters: int):
+    """(mean device ms a launch of the kernel whose name holds
+    ``kernel``, device ms of one call of ``fn``: the sum of the mean
+    launches of every kernel and memset it runs, each once a call), from
+    ``profiled_ms``.  Raises when the profiler saw no such kernel."""
+    times = profiled_ms(fn, iters)
+    mine = [ms for k, (ms, _) in times.items() if kernel in k]
+    if len(mine) != 1:
+        raise AssertionError(f"torch.profiler recorded {len(mine)} kernels "
+                             f"named {kernel}: {times}")
+    return mine[0], sum(ms for ms, _ in times.values())
+
+
+def host_ms(fn, iters: int) -> float:
+    """Mean host milliseconds of one call of ``fn`` (the host clock
+    around ``iters`` calls, without a synchronise inside: the time the
+    caller's thread spends in the call)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * t / iters
 
 
 def paired_ms(fa, fb, iters: int):
@@ -969,15 +1030,67 @@ def touched_rows(spec, x) -> int:
     return int(torch.unique(torch.cat(rows)).numel())
 
 
+def corner_rows(spec, x):
+    """(rows int64 [N, C], valid bool [N, C]) of every level-instance, in
+    the kernels' order: the corner rows of ``_level_indices``, valid where
+    every coordinate of the corner lies in (0, res - 1) (the corners that
+    B3b adds to; a border corner weighs 0 and is skipped)."""
+    from gsvc_tpu_torch.ops.hashgrid import _level_indices
+
+    s = spec.param_splits()
+    for base, grid, cols in ((s[0], spec.grid_3d, [0, 1, 2]),
+                             (s[1], spec.grid_2d, [0, 1]),
+                             (s[2], spec.grid_2d, [0, 2]),
+                             (s[3], spec.grid_2d, [1, 2])):
+        xs = x[:, cols]
+        for lvl in range(grid.n_levels):
+            res = grid.resolutions[lvl]
+            idx, _ = _level_indices(xs, res, grid.level_sizes[lvl],
+                                    grid.level_offsets[lvl], grid.num_dim)
+            pg = torch.floor(xs * float(res - 2) + 0.5).to(torch.int64)
+            valid = []
+            for c in range(1 << grid.num_dim):
+                ok = torch.ones_like(pg[:, 0], dtype=torch.bool)
+                for d in range(grid.num_dim):
+                    coord = (torch.clamp(pg[:, d] + 1, max=res - 1)
+                             if (c >> d) & 1 else pg[:, d])
+                    ok = ok & (coord > 0) & (coord < res - 1)
+                valid.append(ok)
+            yield idx + base, torch.stack(valid, 1)
+
+
+def hash_atomics(spec, x) -> dict:
+    """B3b's global atomic operations on ``x``, reckoned from the inputs
+    (``corner_rows``): one float4 add per 4 features (F scalar adds when
+    F is 2) of every valid corner of every (query, instance), in the
+    kernel's design as in the previous one (a thread a (query,
+    instance)); and what combining the adds that fall on one row inside a
+    block of 32 or 256 z-consecutive queries would leave."""
+    f = spec.n_features
+    per = f // 4 if f % 4 == 0 else f
+    n, blocks = 0, {32: 0, 256: 0}
+    q = torch.arange(x.shape[0], device=x.device)[:, None]
+    for rows, valid in corner_rows(spec, x):
+        n += int(valid.sum())
+        for b in blocks:
+            key = (q // b).expand_as(rows)[valid] * spec.total_rows \
+                + rows[valid]
+            blocks[b] += int(torch.unique(key).numel())
+    return {"per valid corner (this design and the previous one)": n * per,
+            **{f"combined per row in blocks of {b} queries": u * per
+               for b, u in blocks.items()}}
+
+
 def hashgrid_check(hk, spec, table, x, label):
     """B3f/B3b against their plain versions on one input, timed."""
     out_k = hk.hashgrid_fwd_cuda(table, x, spec)
     out_p = hk.hashgrid_fwd_plain(table, x, spec)
     torch.cuda.synchronize()
     f_err = float((out_k - out_p).abs().max())
-    if not np.isfinite(f_err) or f_err > MAX_HASH_FWD_ERR:
-        raise AssertionError(f"{label}: B3f disagrees with its plain "
-                             f"version: {f_err} > {MAX_HASH_FWD_ERR}")
+    if not torch.equal(out_k, out_p):
+        raise AssertionError(f"{label}: B3f differs from its plain version "
+                             f"(max |kernel - plain| {f_err}); both round "
+                             f"alike and must agree bit for bit")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(23)
     g = torch.randn(out_p.shape, generator=gen, device="cuda")
@@ -995,8 +1108,20 @@ def hashgrid_check(hk, spec, table, x, label):
         raise AssertionError(f"{label}: B3b disagrees with its plain "
                              f"version: {b_rel} > {HASH_BWD_REL_ERR} of the "
                              f"largest gradient")
-    f_ms = cuda_ms(lambda: hk.hashgrid_fwd_cuda(table, x, spec), 20)
-    b_ms = cuda_ms(lambda: hk.hashgrid_bwd_cuda(table, x, g, spec), 20)
+
+    def fwd():
+        return hk.hashgrid_fwd_cuda(table, x, spec)
+
+    def bwd():
+        return hk.hashgrid_bwd_cuda(table, x, g, spec)
+
+    # the kernel alone (CUPTI's kernel durations), everything the call
+    # runs on the card, the call back to back (CUDA events) and the host
+    # time of one call
+    f_kernel, f_device = kernel_ms(fwd, "hashgrid_fwd_kernel", 20)
+    b_kernel, b_device = kernel_ms(bwd, "hashgrid_bwd_kernel", 20)
+    f_call, b_call = cuda_ms(fwd, 20), cuda_ms(bwd, 20)
+    f_host, b_host = host_ms(fwd, 50), host_ms(bwd, 50)
     f_plain = cuda_ms(lambda: hk.hashgrid_fwd_plain(table, x, spec), 3)
     b_plain = cuda_ms(lambda: hk.hashgrid_bwd_plain(table, x, g, spec), 3)
     # bytes: the table rows the queries need (read once), x, the
@@ -1007,17 +1132,28 @@ def hashgrid_check(hk, spec, table, x, label):
     fb = bound_ms(row_bytes + nbytes(x, out_k), hash_flops(spec, n, False))
     bb = bound_ms(row_bytes + nbytes(x, g, gt_k, gx_k),
                   hash_flops(spec, n, True))
+    atomics = hash_atomics(spec, x)
     log(f"{label}: N={n} queries x {hk.instance_table(spec).shape[0]} "
         f"instances, {rows} of {spec.total_rows} table rows needed "
-        f"({row_bytes / 1e6:.2f} MB); B3f max |kernel - plain| {f_err:.3e} (limit "
-        f"{MAX_HASH_FWD_ERR:.0e}), kernel {f_ms:.4f} ms, plain "
-        f"{f_plain:.3f} ms, bound {fb[0]:.4f} ms ({fb[1]}); B3b max |kernel "
-        f"- plain| {b_abs:.3e} = {b_rel:.3e} of the largest gradient (limit "
-        f"{HASH_BWD_REL_ERR:.0e}), kernel {b_ms:.4f} ms, plain "
-        f"{b_plain:.3f} ms, bound {bb[0]:.4f} ms ({bb[1]})")
-    return (dict(ms=f_ms, plain_ms=f_plain, bound_ms=fb[0], bound_by=fb[1],
+        f"({row_bytes / 1e6:.2f} MB); B3f equals its plain version bit "
+        f"for bit, B3b max |kernel - plain| "
+        f"{b_abs:.3e} = {b_rel:.3e} of the largest gradient (limit "
+        f"{HASH_BWD_REL_ERR:.0e})")
+    for name, kern, dev, call, host, plain, bnd in (
+            ("B3f", f_kernel, f_device, f_call, f_host, f_plain, fb),
+            ("B3b", b_kernel, b_device, b_call, b_host, b_plain, bb)):
+        log(f"{label}: {name} kernel {kern:.4f} ms (torch.profiler, CUPTI "
+            f"kernel durations over 20 calls), {kern / bnd[0]:.2f}x its "
+            f"bound {bnd[0]:.4f} ms ({bnd[1]}); all device work of the "
+            f"call {dev:.4f} ms; call {call:.4f} ms (CUDA events, 20 calls "
+            f"back to back); host {host:.4f} ms a call; plain {plain:.3f} ms")
+    log(f"{label}: B3b global atomics " + ", ".join(
+        f"{k} {v}" for k, v in atomics.items()))
+    return (dict(ms=f_call, kernel_ms=f_kernel, host_ms=f_host,
+                 plain_ms=f_plain, bound_ms=fb[0], bound_by=fb[1],
                  max_abs_err=f_err),
-            dict(ms=b_ms, plain_ms=b_plain, bound_ms=bb[0], bound_by=bb[1],
+            dict(ms=b_call, kernel_ms=b_kernel, host_ms=b_host,
+                 plain_ms=b_plain, bound_ms=bb[0], bound_by=bb[1],
                  max_abs_err=b_abs))
 
 
@@ -1951,6 +2087,7 @@ def main() -> int:
         "launches": b3_launches[0],
         "max_abs_err": max(h3f["max_abs_err"], c3f["max_abs_err"]),
         "ms": h3f["ms"],
+        "kernel_ms": h3f["kernel_ms"],   # the kernel alone (torch.profiler)
         "plain_ms": h3f["plain_ms"],
         "bound_ms": h3f["bound_ms"],
         "bound_by": h3f["bound_by"],
@@ -1963,6 +2100,7 @@ def main() -> int:
         "launches": b3_launches[1],
         "max_abs_err": max(h3b["max_abs_err"], c3b["max_abs_err"]),
         "ms": h3b["ms"],
+        "kernel_ms": h3b["kernel_ms"],   # the kernel alone (torch.profiler)
         "plain_ms": h3b["plain_ms"],
         "bound_ms": h3b["bound_ms"],
         "bound_by": h3b["bound_by"],

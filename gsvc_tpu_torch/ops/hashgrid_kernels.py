@@ -6,16 +6,20 @@ Counterpart of ``gsvc_tpu/ops/pallas_hashgrid.py`` (``_fwd_kernel`` :270,
 ``_bwd_kernel`` :295, ``mix_grid_encode_lanegather`` :486).  The kernels
 (``csrc/hashgrid_fwd.cu``, ``csrc/hashgrid_bwd.cu``) compute what the
 plain ``ops/hashgrid.py:mix_grid_encode`` computes, straight from the flat
-[rows, F] table: one thread per (query, level-instance), the instances
-being the 3D grid's levels, then the xy, xz and yz planes' levels
+[rows, F] table, two lanes a query at F = 8, over the level-instances:
+the 3D grid's levels, then the xy, xz and yz planes' levels
 (``instance_table``), so the output columns are ``mix_grid_encode``'s.
-The TPU kernel's lane-packed tables (``pack_tables``, ``_seg_reduce``) and
-one-hot matmul scatter are TPU workarounds and are not carried over.
+B3f's blocks each take one instance of 64 queries; B3b's take 32
+z-consecutive queries with every instance, add the table gradient with
+atomics (its summation order changes from run to run) and sum each
+query's position gradient over the instances in a fixed order, writing
+``dL/dx`` themselves.  The TPU kernel's lane-packed tables
+(``pack_tables``, ``_seg_reduce``) and one-hot matmul scatter are TPU
+workarounds and are not carried over.
 
-B3b adds the table gradient with atomics (its summation order changes
-from run to run) and writes each instance's position gradient to its own
-row of ``[n_inst, N, 3]``; one sum over the instances after the kernel
-gives ``dL/dx``.
+What a launch needs that depends on the spec and the device alone is
+built once per (spec, device) (``launch_plan``); a call checks only its
+tensors.
 
 CUDA tensors launch the kernels (and add one to ``hashgrid_forward.
 launches`` / ``hashgrid_backward.launches``); CPU tensors take the plain
@@ -26,7 +30,7 @@ device raises.  A failed build or launch raises: nothing falls back.
 from __future__ import annotations
 
 import ctypes
-import functools
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -38,26 +42,27 @@ _FEATURES = (2, 4, 8)
 
 
 def instance_table(spec: MixGridSpec) -> np.ndarray:
-    """int32 [n_inst, 8]: (res, size, first row, ndim, dims[3], use_hash)
-    per level-instance, in ``mix_grid_encode``'s column order."""
+    """int32 [n_inst, 9]: (res, size, first row, ndim, dims[3], use_hash,
+    mask) per level-instance, in ``mix_grid_encode``'s column order.
+    ``mask`` is ``size - 1`` in a hashed level, whose size must be a power
+    of two (``h % size == h & mask``), and 0 in a dense one."""
     rows = []
     g3, g2 = spec.grid_3d, spec.grid_2d
-    for lvl in range(g3.n_levels):
-        res, size = g3.resolutions[lvl], g3.level_sizes[lvl]
-        rows.append((res, size, g3.level_offsets[lvl], 3, 0, 1, 2,
-                     int(res ** 3 > size)))
-    for plane, (a, b) in enumerate(((0, 1), (0, 2), (1, 2))):
+    levels = [(g3, lvl, g3.level_offsets[lvl], (0, 1, 2))
+              for lvl in range(g3.n_levels)]
+    for plane, dims in enumerate(((0, 1, 0), (0, 2, 0), (1, 2, 0))):
         base = g3.total_rows + plane * g2.total_rows
-        for lvl in range(g2.n_levels):
-            res, size = g2.resolutions[lvl], g2.level_sizes[lvl]
-            rows.append((res, size, base + g2.level_offsets[lvl], 2, a, b, 0,
-                         int(res ** 2 > size)))
+        levels += [(g2, lvl, base + g2.level_offsets[lvl], dims)
+                   for lvl in range(g2.n_levels)]
+    for grid, lvl, offset, dims in levels:
+        res, size = grid.resolutions[lvl], grid.level_sizes[lvl]
+        use_hash = res ** grid.num_dim > size
+        if use_hash and size & (size - 1):
+            raise ValueError(f"hashed level of resolution {res}: size {size} "
+                             f"is not a power of two")
+        rows.append((res, size, offset, grid.num_dim, *dims, int(use_hash),
+                     size - 1 if use_hash else 0))
     return np.asarray(rows, np.int32)
-
-
-@functools.lru_cache(maxsize=16)
-def _meta(spec: MixGridSpec, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(instance_table(spec)).to(device)
 
 
 def _check(table, x, spec: MixGridSpec):
@@ -76,70 +81,136 @@ def _check(table, x, spec: MixGridSpec):
 # Kernel launchers (CUDA tensors)
 # ---------------------------------------------------------------------------
 
-def _fn(lib: str, name: str, n_ptrs: int):
+def _fn(lib: str, name: str, n_ptrs: int, n_ints: int):
     fn = getattr(load(lib), name)
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.restype = ci
-        fn.argtypes = [vp] * n_ptrs + [ci] * 3 + [vp]
+        fn.argtypes = [vp] * n_ptrs + [ci] * n_ints + [vp]
     return fn
 
 
+class LaunchPlan:
+    """What a launch of B3f/B3b needs that depends only on the spec and
+    the device, built once per (spec, device) by ``launch_plan``: the
+    instance table on the card, n_inst and F, the table's shape and the
+    ctypes functions.  Building it checks F and the 32-bit row index."""
+
+    def __init__(self, spec: MixGridSpec, device: int):
+        f = spec.n_features
+        if f not in _FEATURES:
+            raise ValueError(f"the hash-grid kernels take F in {_FEATURES}, "
+                             f"got {f}")
+        if spec.total_rows * f >= 2 ** 31:
+            raise ValueError(f"the hash-grid kernels index the table in 32 "
+                             f"bits: {spec.total_rows} rows x {f} features "
+                             f">= 2^31")
+        self.spec, self.device = spec, device
+        meta = instance_table(spec)
+        self.n_inst, self.f = meta.shape[0], f
+        self.table_shape = (spec.total_rows, f)
+        self.out_dim = self.n_inst * f
+        self.meta = torch.from_numpy(meta).to(f"cuda:{device}")
+        self.fwd = _fn("hashgrid_fwd", "hashgrid_forward", 4, 3)
+        self.bwd = _fn("hashgrid_bwd", "hashgrid_backward", 6, 4)
+
+
+_PLANS_KEPT = 16
+_plans: "OrderedDict[tuple, LaunchPlan]" = OrderedDict()
+
+
+def launch_plan(spec: MixGridSpec, device: int) -> LaunchPlan:
+    """The (spec, device)'s plan, built at its first use (counted in
+    ``launch_plan.built``); the ``_PLANS_KEPT`` most recently used are
+    kept.  Keyed by the spec's identity, so no call hashes the dataclass;
+    a kept plan holds its spec, so the spec's id cannot be reused while
+    the key is in the cache."""
+    key = (id(spec), device)
+    plan = _plans.get(key)
+    if plan is None:
+        plan = _plans[key] = LaunchPlan(spec, device)
+        launch_plan.built += 1
+        if len(_plans) > _PLANS_KEPT:
+            _plans.popitem(last=False)
+    else:
+        _plans.move_to_end(key)
+    return plan
+
+
+launch_plan.built = 0
+
+
 def _cuda_inputs(table, x, spec):
-    _check(table, x, spec)
-    if not (table.is_cuda and x.is_cuda):
+    """The plan and the call's tensors after the checks that depend on
+    them: float32 CUDA tensors on one device, shapes, contiguity, 16-byte
+    aligned rows."""
+    if not (x.is_cuda and table.is_cuda):
         raise ValueError("the hash-grid kernels take CUDA tensors")
-    if x.dtype != torch.float32:
-        raise ValueError(f"the hash-grid kernels take float32, got {x.dtype}")
-    if spec.n_features not in _FEATURES:
-        raise ValueError(f"the hash-grid kernels take F in {_FEATURES}, got "
-                         f"{spec.n_features}")
+    device = x.get_device()
+    plan = launch_plan(spec, device)
+    if table.get_device() != device:
+        raise ValueError(f"table on {table.device}, x on {x.device}")
+    if x.dtype != torch.float32 or table.dtype != torch.float32:
+        raise ValueError(f"the hash-grid kernels take float32, got table "
+                         f"{table.dtype}, x {x.dtype}")
+    if table.shape != plan.table_shape:
+        raise ValueError(f"table: expected {plan.table_shape}, got "
+                         f"{tuple(table.shape)}")
+    if x.dim() != 2 or x.shape[1] != 3:
+        raise ValueError(f"x: expected [N, 3], got {tuple(x.shape)}")
     table = table.contiguous()
     if table.data_ptr() % 16:
         table = table.clone()      # float4 rows need 16-byte alignment
-    return table, x.contiguous(), _meta(spec, x.device)
+    return plan, table, x.contiguous()
 
 
-def _check_err(err: int, name: str):
+def _stream(device: int) -> int:
+    """The raw handle of ``device``'s current stream: PyTorch's own
+    accessor (the one its compiled kernels launch with), which builds no
+    ``torch.cuda.Stream`` object on every call."""
+    return torch._C._cuda_getCurrentRawStream(device)
+
+
+def _launch(fn, device: int, *args):
+    if device == torch.cuda.current_device():
+        err = fn(*args, _stream(device))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, _stream(device))
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
 
 
 def hashgrid_fwd_cuda(table, x, spec: MixGridSpec):
     """Launch kernel B3f once: [N, output_dim]."""
-    table, x, meta = _cuda_inputs(table, x, spec)
-    n, n_inst = x.shape[0], meta.shape[0]
-    out = torch.empty((n, n_inst * spec.n_features), dtype=torch.float32,
-                      device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _fn("hashgrid_fwd", "hashgrid_forward", 4)(
-            table.data_ptr(), x.data_ptr(), meta.data_ptr(), out.data_ptr(),
-            n, n_inst, spec.n_features, stream)
-    _check_err(err, "hashgrid_forward")
+    plan, table, x = _cuda_inputs(table, x, spec)
+    n = x.shape[0]
+    out = torch.empty((n, plan.out_dim), dtype=torch.float32, device=x.device)
+    _launch(plan.fwd, plan.device, table.data_ptr(), x.data_ptr(),
+            plan.meta.data_ptr(), out.data_ptr(), n, plan.n_inst, plan.f)
     return out
 
 
 def hashgrid_bwd_cuda(table, x, g_out, spec: MixGridSpec):
-    """Launch kernel B3b once: (g_table [rows, F], g_x [N, 3])."""
-    table, x, meta = _cuda_inputs(table, x, spec)
-    n, n_inst = x.shape[0], meta.shape[0]
-    if g_out.dtype != torch.float32 or tuple(g_out.shape) != (
-            n, n_inst * spec.n_features):
-        raise ValueError(f"g_out: expected float32 {(n, n_inst * spec.n_features)}"
-                         f", got {g_out.dtype} {tuple(g_out.shape)}")
+    """Launch kernel B3b once: (g_table [rows, F], g_x [N, 3]).  The
+    launcher zeroes the table gradient (one memset on the stream) before
+    the kernel adds to it; the kernel writes every row of g_x."""
+    plan, table, x = _cuda_inputs(table, x, spec)
+    n = x.shape[0]
+    if (g_out.dtype != torch.float32 or g_out.shape != (n, plan.out_dim)
+            or g_out.get_device() != plan.device):
+        raise ValueError(f"g_out: expected float32 {(n, plan.out_dim)} on "
+                         f"{x.device}, got {g_out.dtype} "
+                         f"{tuple(g_out.shape)} on {g_out.device}")
     g_out = g_out.contiguous()
-    g_table = torch.zeros_like(table)
-    gx_part = torch.empty((n_inst, n, 3), dtype=torch.float32,
-                          device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _fn("hashgrid_bwd", "hashgrid_backward", 6)(
-            table.data_ptr(), x.data_ptr(), g_out.data_ptr(), meta.data_ptr(),
-            g_table.data_ptr(), gx_part.data_ptr(), n, n_inst,
-            spec.n_features, stream)
-    _check_err(err, "hashgrid_backward")
-    return g_table, gx_part.sum(dim=0)
+    if g_out.data_ptr() % 16:
+        g_out = g_out.clone()      # read as float4 rows
+    g_table = torch.empty_like(table)
+    g_x = torch.empty((n, 3), dtype=torch.float32, device=x.device)
+    _launch(plan.bwd, plan.device, table.data_ptr(), x.data_ptr(),
+            g_out.data_ptr(), plan.meta.data_ptr(), g_table.data_ptr(),
+            g_x.data_ptr(), plan.table_shape[0], n, plan.n_inst, plan.f)
+    return g_table, g_x
 
 
 # ---------------------------------------------------------------------------

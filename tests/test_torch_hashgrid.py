@@ -73,7 +73,7 @@ def test_spec_matches_jax():
         assert (a.level_sizes, a.level_offsets) == (b.level_sizes,
                                                     b.level_offsets)
     assert hk.instance_table(ps).shape == (
-        ps.grid_3d.n_levels + 3 * ps.grid_2d.n_levels, 8)
+        ps.grid_3d.n_levels + 3 * ps.grid_2d.n_levels, 9)
     t = init_mix_grid_params(torch.Generator().manual_seed(0), ps)
     assert t.shape == (ps.total_rows, 4) and float(t.abs().max()) <= 1e-4
 

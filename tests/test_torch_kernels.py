@@ -521,6 +521,103 @@ def test_hashgrid_autograd_through_kernels():
     assert float(grads[0][0][table.abs() > 1].abs().max()) == 0.0
 
 
+def _grid(f):
+    """The fixture's levels with f features a row."""
+    return FIXTURE_GRID if f == 8 else make_mix_grid_spec(
+        n_features=f,
+        resolutions_list=FIXTURE_GRID.grid_3d.resolutions,
+        log2_hashmap_size=13,
+        resolutions_list_2d=FIXTURE_GRID.grid_2d.resolutions,
+        log2_hashmap_size_2d=15)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [2, 4, 8])
+@pytest.mark.parametrize("order", ["z_sorted", "shuffled"])
+def test_hashgrid_kernels_per_feature_count(f, order):
+    """B3f equals its plain version bit for bit and B3b (with dL/dx
+    summed over the instances inside the kernel) agrees to 1e-4 of the
+    largest gradient, at F = 2, 4 and 8 (one and two lanes a query), on
+    queries sorted by z as the anchors are, and shuffled; 3,001 queries
+    leave a partial last warp."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    spec = _grid(f)
+    rng = np.random.default_rng(f)
+    x = rng.uniform(0, 1, (3001, 3))
+    x[:8] = [[a, b, c] for a in (0.0, 1.0) for b in (0.0, 1.0)
+             for c in (0.0, 1.0)]
+    x = x[np.argsort(x[:, 2])] if order == "z_sorted" else x
+    x = torch.from_numpy(x.astype(np.float32)).cuda()
+    table = torch.from_numpy(rng.uniform(-1, 1, (spec.total_rows, f))
+                             .astype(np.float32)).cuda()
+    out_k = hk.hashgrid_forward(table, x, spec)
+    out_p = hk.hashgrid_fwd_plain(table, x, spec)
+    assert out_k.shape == (3001, spec.output_dim)
+    assert torch.equal(out_k, out_p)
+    g = torch.randn(out_p.shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(f))
+    gt_k, gx_k = hk.hashgrid_backward(table, x, g, spec)
+    gt_p, gx_p = hk.hashgrid_bwd_plain(table, x, g, spec)
+    torch.cuda.synchronize()
+    assert gx_k.shape == (3001, 3)
+    for got, want in ((gt_k, gt_p), (gx_k, gx_p)):
+        scale = float(want.abs().max())
+        assert scale > 0
+        assert float((got - want).abs().max()) <= HASH_GRAD_REL * scale
+
+
+@pytest.mark.cuda
+def test_hashgrid_backward_is_one_kernel_and_no_per_instance_buffer():
+    """A B3b call runs one memset (the table gradient) and one kernel,
+    with no reduction after it, and allocates no [n_inst, N, 3] buffer:
+    its peak is the two gradients."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    table, x = _hash_inputs(25_000, seed=4, binary=True)
+    g = torch.randn((25_000, FIXTURE_GRID.output_dim), device="cuda")
+    hk.hashgrid_backward(table, x, g, FIXTURE_GRID)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        hk.hashgrid_backward(table, x, g, FIXTURE_GRID)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+    kernels = [k for k in names if "emset" not in k]
+    assert len(kernels) == 1 and "hashgrid_bwd_kernel" in kernels[0], names
+    assert len(names) == 2, names   # and the memset of the table gradient
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gt, gx = hk.hashgrid_backward(table, x, g, FIXTURE_GRID)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    n_inst = hk.instance_table(FIXTURE_GRID).shape[0]
+    assert n_inst * 25_000 * 3 * 4 > 2 ** 22   # a per-instance buffer's size
+    assert grown <= gt.numel() * 4 + gx.numel() * 4 + 2 ** 20, grown
+
+
+@pytest.mark.cuda
+def test_hashgrid_launch_plan_built_once_per_spec_and_device():
+    """The first call on a (spec, device) builds its plan; later calls,
+    forward and backward, reuse it; another spec object builds its own."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    spec = _grid(4)
+    table = torch.rand((spec.total_rows, 4), device="cuda")
+    x = torch.rand((100, 3), device="cuda")
+    before = hk.launch_plan.built
+    out = hk.hashgrid_forward(table, x, spec)
+    hk.hashgrid_forward(table, x, spec)
+    hk.hashgrid_backward(table, x, torch.ones_like(out), spec)
+    assert hk.launch_plan.built == before + 1
+    hk.hashgrid_forward(table, x, _grid(4))
+    assert hk.launch_plan.built == before + 2
+
+
 def _tiny_fit_config():
     from gsvc_tpu_torch.config import (
         Config, ModelConfig, OptimizationConfig, PipelineConfig,
