@@ -6,12 +6,14 @@
 2. Builds the port's native code from the checkout (``nvcc`` for the
    kernels, the host C++ compiler for the entropy codec), all compilers
    started together, and prints the build's wall seconds, each kernel's
-   registers, shared memory and spills (``-Xptxas -v``), and the SASS
+   registers, shared memory and spills (``-Xptxas -v``), the SASS
    instructions per evaluated (copy, pixel) pair of the inner loops of
-   B1, B2, B6f and B6b (``cuobjdump -sass``, where the toolkit has it).
+   B1, B2, B6f, B6b, B4 and B5b (``cuobjdump -sass``, where the toolkit
+   has it) and the SM clock (``nvidia-smi clocks.max.sm``).
 3. Kernel phase: kernel B4 (``bidir_composite_attrs``) against its plain
    PyTorch version at the 1080p decode shapes (T=1020 tiles, cap 1024,
-   chunk 128, P=2048 pixels), and kernels B1/B2 (``mirror_forward`` /
+   chunk 128, P=2048 pixels), with B4's report (below), and kernels
+   B1/B2 (``mirror_forward`` /
    ``mirror_backward``, the training composite) against theirs at the
    1080p training shapes (F=2 frames, T=2025 tiles of 8x128, cap 1024,
    chunk 128), with and without per-view means2d gradients; seeded
@@ -23,7 +25,11 @@
    renders 8 frames through ``report.evaluate_video`` — the decoder's own
    render loop — with the launch counts reset just before and read just
    after; then holds each frame's kernel composite against the plain
-   version and times both.
+   version and times both.  B4's report on the middle frame (342) and in
+   the kernel phase: the kernel alone (torch.profiler), the work per
+   block (chunks used per tile, the heaviest tile's pairs and share),
+   the chip-wide and critical-path issue floors, and a digest of the
+   output's bits.
 5. Training phase: the 600 frames the port decodes from that bitstream
    become the ground truth (uint8 on the card); ``GOPFitter.fit`` runs 40
    steps of the fixture's model and pipeline
@@ -70,7 +76,10 @@
    plain versions at the 1080p training shapes (V=4 views of T=2025
    8x128 tiles, cap 1024, chunk 128; the synthetic tiles of step 3), with
    and without checkpoints, and the plane gradients of both pushed
-   through the gather's transpose with and without per-view means2d.
+   through the gather's transpose with and without per-view means2d;
+   two B5b launches must give the same bits.  B5b is timed alone too,
+   with its work per block (chunks replayed per row, the heaviest row)
+   and both issue floors.
 8. Codec phase: the training phase's fitted state through
    ``conduct_encoding`` -> ``save_streams`` -> ``load_streams`` ->
    ``conduct_decoding`` -> ``evaluate_video`` over all 600 frames (B4 once
@@ -113,8 +122,8 @@
    decoded PSNR.  Then B5f/B5b against their plain versions on the
    fitted state's pair 299-300 (its four views' planes), timed.
 11. Prints the kernel table as one JSON line (``ms``: the wrapper's
-   call, 20 back to back under CUDA events; ``kernel_ms``, B3f/B3b
-   only: the kernel alone), then the result line.
+   call, 20 back to back under CUDA events; ``kernel_ms``, B3f, B3b, B4
+   and B5b: the kernel alone), then the result line.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 Frames are written nowhere; the checkpoint goes to a temporary directory.
@@ -220,13 +229,15 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def profiled_ms(fn, iters: int, tries: int = 3) -> dict:
+def profiled_ms(fn, iters: int, tries: int = 3):
     """{device activity name: (mean device ms a launch, launches)} over
     ``iters`` calls of ``fn`` after one warm-up call: the durations of
     the CUDA kernels and memsets that CUPTI records (``torch.profiler``;
     the host side's launch events, which carry their kernels' time too,
     are left out).  A profile that holds no device activity at all (seen
-    once in a run on the H100) is taken again, up to ``tries`` times."""
+    in runs on the H100, once after the training phase three times in a
+    row) is taken again after the allocator's cache is returned to the
+    card, up to ``tries`` times; None if every profile was empty."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -243,17 +254,28 @@ def profiled_ms(fn, iters: int, tries: int = 3) -> dict:
                  and e.device_time_total > 0}
         if times:
             return times
-        log("torch.profiler recorded no device activity; profiling again")
-    raise AssertionError(f"torch.profiler recorded no device activity in "
-                         f"{tries} profiles")
+        free, total = torch.cuda.mem_get_info()
+        log(f"torch.profiler recorded no device activity ({free / 2**30:.1f}"
+            f" of {total / 2**30:.1f} GiB free, "
+            f"{torch.cuda.memory_reserved() / 2**30:.1f} GiB held by the "
+            f"allocator); profiling again after emptying its cache")
+        torch.cuda.empty_cache()
+    return None
 
 
 def kernel_ms(fn, kernel: str, iters: int):
     """(mean device ms a launch of the kernel whose name holds
     ``kernel``, device ms of one call of ``fn``: the sum of the mean
     launches of every kernel and memset it runs, each once a call), from
-    ``profiled_ms``.  Raises when the profiler saw no such kernel."""
+    ``profiled_ms``.  Where every profile came back empty, both are the
+    call's time under CUDA events (``cuda_ms``), and the log says so.
+    Raises when the profiler saw no such kernel."""
     times = profiled_ms(fn, iters)
+    if times is None:
+        ms = cuda_ms(fn, iters)
+        log(f"torch.profiler empty: {kernel} timed by CUDA events around "
+            f"the call instead ({ms:.4f} ms): not the kernel alone")
+        return ms, ms
     mine = [ms for k, (ms, _) in times.items() if kernel in k]
     if len(mine) != 1:
         raise AssertionError(f"torch.profiler recorded {len(mine)} kernels "
@@ -319,11 +341,27 @@ def ptxas_report(text: str, lib: str):
 
 # kernel instantiations whose inner loops sass_floors counts: the mirror
 # kernels at the training tiles' 8 pixels a thread, the stream kernels
-# (the previous mirror design) at their 4
+# (the previous mirror design) at their 4; B4 and B5b join them at the
+# instantiations their launch plans take (sass_kernels)
 SASS_KERNELS = (("B1", "mirror_fwd", "mirror_fwd_kernelILi8E"),
                 ("B2", "mirror_bwd", "mirror_bwd_kernelILi8E"),
                 ("B6f", "stream_fwd", "stream_fwd_kernelILi4E"),
                 ("B6b", "stream_bwd", "stream_bwd_kernelILi4E"))
+# the card's SM clock (MHz, nvidia-smi clocks.max.sm), read in main
+SM_CLOCK_MHZ = None
+
+
+def sass_kernels(bidir, decode_settings, train_settings):
+    """SASS_KERNELS plus B4 at the decode tiles and B5b at the training
+    tiles, each at the pixels a thread its launch plan gives, and how a
+    pair meets the loops: "each" (a pair runs in one of them: B4's front
+    or back loop, a view's copy of a loop) or "sum" (every replayed pair
+    runs in each: a backward that walks a chunk twice)."""
+    ppt4 = bidir.bidir_launch_plan(decode_settings)[2]
+    ppt5 = bidir.column_shape(train_settings, "B5b")[1]
+    return tuple((*k, "each") for k in SASS_KERNELS) + (
+        ("B4", "bidir", f"bidir_kernelILi{ppt4}E", "each"),
+        ("B5b", "tile_bwd", f"tile_bwd_kernelILi{ppt5}E", "sum"))
 
 
 def sass_loops(sass: str, kernel: str):
@@ -369,29 +407,170 @@ def sass_loops(sass: str, kernel: str):
     return out
 
 
-def sass_floors(build):
+def sass_floors(build, kernels):
     """Issued-instruction floor per evaluated (copy, pixel) pair of the
     compositing kernels' inner loops: static SASS instructions of each
     innermost loop that evaluates alphas over its MUFU.EX2 count (one per
     pair).  A design that walks a chunk twice has a loop per walk, and
     the compiler may keep a copy of a loop per view (forward, flip), so
     the line lists every loop.  Prints "not measured" without
-    ``cuobjdump``."""
+    ``cuobjdump``.  Returns {label: (least, most) instructions a pair}:
+    over the loops ("each"), or their sum both times ("sum")."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not pathlib.Path(tool).exists():
         log("sass: cuobjdump not found; instructions per pair not measured")
-        return
-    for label, lib, kernel in SASS_KERNELS:
+        return {}
+    per_pair = {}
+    for label, lib, kernel, how in kernels:
         sass = subprocess.run([tool, "-sass", str(build._target(lib))],
                               capture_output=True, text=True).stdout
         loops = sass_loops(sass, kernel)
         if not loops:
             log(f"sass: {label} ({kernel}): no loop found; not measured")
             continue
+        ipp = [n / ex2 for n, ex2, _ in loops]
+        per_pair[label] = ((sum(ipp),) * 2 if how == "sum"
+                           else (min(ipp), max(ipp)))
         log(f"sass: {label} ({kernel}): inner loops (instructions, "
             f"MUFU.EX2, SHFL) {loops}: " + ", ".join(
-                f"{n / ex2:.1f}" for n, ex2, _ in loops)
-            + " instructions per pair")
+                f"{v:.1f}" for v in ipp) + " instructions per pair"
+            + (f" (a pair runs in every loop: {sum(ipp):.1f})"
+               if how == "sum" and len(ipp) > 1 else ""))
+    return per_pair
+
+
+# instructions a pair of B4 and B5b (sass_floors), read by their phases
+SASS_PER_PAIR = {}
+
+
+def floors(label, pairs, heaviest, threads):
+    """The two issue floors of a compositing kernel, in ms, from its
+    SASS instructions a pair (least and most over its loops): the
+    chip-wide floor, pairs x instructions / 32 lanes over every
+    scheduler of the card (4 an SM) at the SM clock, and the
+    critical-path floor, the heaviest block's pairs x instructions over
+    its threads, times its warps a scheduler, at the SM clock.  A string
+    for the log ("not measured" without the SASS count or the clock)."""
+    ipp = SASS_PER_PAIR.get(label)
+    if ipp is None or not SM_CLOCK_MHZ:
+        return "floors not measured (no SASS count or SM clock)"
+    hz = SM_CLOCK_MHZ * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    wps = -(-threads // 128)
+    chip = [1e3 * pairs * i / 32 / (sms * 4 * hz) for i in ipp]
+    crit = [1e3 * heaviest * i / threads * wps / hz for i in ipp]
+
+    def rng(v):
+        return (f"{v[0]:.4f}" if v[0] == v[1]
+                else f"{v[0]:.4f}-{v[1]:.4f}")
+    return (f"chip-wide issue floor {rng(chip)} ms, critical-path floor "
+            f"{rng(crit)} ms ({ipp[0]:.1f}-{ipp[1]:.1f} instructions a "
+            f"pair, {sms} SMs at {SM_CLOCK_MHZ} MHz, heaviest block "
+            f"{heaviest} pairs on {threads} threads, {wps} warps a "
+            f"scheduler)")
+
+
+def bidir_tile_pairs(settings, attrs, lists, counts, batch: int = 128):
+    """Evaluated pairs of each tile of one frame [T] in B4's loops: the
+    front loop walks a tile's used chunks while some pixel keeps T >=
+    T_EPS at the chunk boundary, the back loop walks down from its last
+    used chunk to that stop while some pixel keeps S >= T_EPS.  The
+    alphas are the plain mirror composite's, ``batch`` tiles at a time;
+    the stops are taken for every tile at once."""
+    from gsvc_tpu_torch.render import mirror
+    from gsvc_tpu_torch.render.splat import T_EPS
+
+    t_n, chunk = settings.n_tiles, settings.chunk
+    n_chunks = settings.gaussian_cap // chunk
+    dev = attrs.device
+    cnt = counts.reshape(-1).long()
+    n_used = ((cnt + chunk - 1) // chunk).clamp(max=n_chunks)
+    # each chunk's product of (1 - alpha) per pixel [n_chunks, T, P]
+    factor = torch.empty(n_chunks, t_n, settings.tile_h * settings.tile_w,
+                         device=dev)
+    for lo in range(0, t_n, batch):
+        sel = torch.arange(lo, min(lo + batch, t_n), device=dev)
+        tl = mirror._mirror_tiles(settings, attrs, lists, counts, 2 * sel)
+        idx = torch.arange(sel.numel(), device=dev)
+        for c in range(n_chunks):
+            factor[c, sel] = mirror._excl_cumprod(
+                1.0 - tl.load(c, idx)[1])[1]
+    walked = torch.zeros(n_chunks, t_n, dtype=torch.bool, device=dev)
+    t = torch.ones_like(factor[0])
+    alive = torch.ones(t_n, dtype=torch.bool, device=dev)
+    for c in range(n_chunks):
+        alive &= (c < n_used) & (t.amax(dim=1) >= T_EPS)
+        walked[c] = alive
+        t = torch.where(alive[:, None], t * factor[c], t)
+    p_stop = walked.sum(dim=0)
+    s = torch.ones_like(t)
+    alive = torch.ones_like(alive)
+    for c in range(n_chunks - 1, -1, -1):
+        started = c < n_used
+        alive &= ~started | ((c >= p_stop) & (s.amax(dim=1) >= T_EPS))
+        run = alive & started
+        walked[c] |= run
+        s = torch.where(run[:, None], s * factor[c], s)
+    pos = torch.arange(n_chunks, device=dev)[:, None]
+    real = (cnt[None] - pos * chunk).clamp(0, chunk)
+    return (real * walked).sum(dim=0) * settings.tile_h * settings.tile_w
+
+
+def bidir_work(settings, attrs, lists, counts, pairs):
+    """Work per block of B4 on one frame: (log text, the heaviest tile's
+    evaluated pairs), from ``bidir_tile_pairs``; their sum is checked
+    against the plain version's ``pairs`` in the text."""
+    cnt = counts.reshape(-1).long()
+    cap, chunk = settings.gaussian_cap, settings.chunk
+    p_pix = settings.tile_h * settings.tile_w
+    n_used = ((cnt + chunk - 1) // chunk).clamp(max=cap // chunk)
+    hist = torch.bincount(n_used, minlength=cap // chunk + 1).tolist()
+    per_tile = bidir_tile_pairs(settings, attrs, lists, counts)
+    best = int(per_tile.max()) if per_tile.numel() else 0
+    full = cnt >= cap
+    single = int(cnt[n_used == 1].sum()) * p_pix
+    slots = int(n_used.sum()) * chunk * p_pix
+    text = (f"{cnt.numel()} tiles, {int(cnt.sum())} copies, median "
+            f"{int(cnt.median())}; chunks used {{0..{cap // chunk}}}: "
+            f"{hist}; {slots} (slot, pixel) pairs in the used chunks, "
+            f"padding slots included; {pairs} evaluated pairs "
+            f"({int(per_tile.sum())} summed over the tiles), "
+            f"{pairs - single} "
+            f"({(pairs - single) / max(pairs, 1):.1%}) in the "
+            f"{int((n_used > 1).sum())} tiles of more than one chunk, "
+            f"{int(per_tile[full].sum())} in the {int(full.sum())} full "
+            f"tiles; heaviest tile {best} pairs "
+            f"({best / max(pairs, 1):.2%} of all)")
+    return text, best
+
+
+def tile_bwd_work(settings, cnt, chk, pairs):
+    """Work per block of B5b (one block a plane row): (log text, the
+    heaviest row's replayed pairs).  A row replays its used chunks up to
+    the last one whose checkpoint has a live pixel."""
+    from gsvc_tpu_torch.render.splat import T_EPS
+
+    cnt = cnt.long()
+    cap, chunk = settings.gaussian_cap, settings.chunk
+    n_chunks = cap // chunk
+    p_pix = settings.tile_h * settings.tile_w
+    pos = torch.arange(n_chunks, device=cnt.device)
+    n_used = ((cnt + chunk - 1) // chunk).clamp(max=n_chunks)
+    live = (chk[:, :n_chunks].amax(dim=2) >= T_EPS) \
+        & (pos[None] < n_used[:, None])
+    walked = torch.where(live, pos[None] + 1, 0).amax(dim=1)
+    real = (cnt[:, None] - pos[None] * chunk).clamp(0, chunk)
+    per_row = (real * (pos[None] < walked[:, None])).sum(dim=1) * p_pix
+    best = int(per_row.max()) if per_row.numel() else 0
+    hist = torch.bincount(walked, minlength=n_chunks + 1).tolist()
+    slots = int(walked.sum()) * chunk * p_pix
+    text = (f"{cnt.numel()} rows, chunks replayed {{0..{n_chunks}}}: "
+            f"{hist}; {slots} (slot, pixel) pairs in the replayed chunks, "
+            f"padding slots included; {int(per_row.sum())} replayed pairs "
+            f"(plain version: "
+            f"{pairs}); heaviest row {best} pairs "
+            f"({best / max(pairs, 1):.2%} of all)")
+    return text, best
 
 
 def synthetic_tiles(settings, seed: int, device):
@@ -553,6 +732,27 @@ def mirror_kernel_phase(mirror, settings):
     return f_err, b_err
 
 
+def b4_report(bidir, settings, attrs, lists, counts, out_k, pairs, label):
+    """B4 on one frame's inputs: the kernel alone (torch.profiler), the
+    work per block, both issue floors at the launch plan's cluster size,
+    and a digest of the output's bits (to hold two trees' kernels to each
+    other).  Returns the kernel alone in ms."""
+    import hashlib
+
+    k_ms, _ = kernel_ms(lambda: bidir.bidir_out4_cuda(settings, attrs,
+                                                      lists, counts),
+                        "bidir_kernel", 20)
+    work, heaviest = bidir_work(settings, attrs, lists, counts, pairs)
+    c_n, threads, ppt = bidir.bidir_launch_plan(settings)
+    digest = hashlib.sha1(out_k.cpu().numpy().tobytes()).hexdigest()[:16]
+    log(f"{label}: B4 kernel alone {k_ms:.4f} ms; launch plan {c_n} CTAs "
+        f"a tile x {threads} threads x {ppt} pixels, tiles heaviest first; "
+        f"out4 sha1 {digest}")
+    log(f"{label}: work per block: {work}")
+    log(f"{label}: {floors('B4', pairs, heaviest // c_n, threads)}")
+    return k_ms
+
+
 def kernel_phase(bidir, settings):
     """B4 against its plain version at the 1080p shapes."""
     attrs, lists, counts = synthetic_tiles(settings, seed=0, device="cuda")
@@ -577,7 +777,9 @@ def kernel_phase(bidir, settings):
                           pairs * FLOPS_PER_PAIR)
     log(f"kernel phase: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}; {pairs} evaluated pairs)")
-    return err
+    k_ms = b4_report(bidir, settings, attrs, lists, counts, out_k, pairs,
+                     "kernel phase (synthetic 1080p)")
+    return err, k_ms
 
 
 def slice_phase(bidir):
@@ -655,8 +857,12 @@ def slice_phase(bidir):
         f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
         f"({b_by}; {pairs} evaluated pairs); window + generation + "
         f"projection + binning {splats_ms:.3f} ms")
+    out_k = bidir.bidir_out4_cuda(dec.settings, a, l, c)
+    k_ms = b4_report(bidir, dec.settings, a, l, c, out_k, pairs,
+                     f"slice phase (frame {ids[N_FRAMES // 2]})")
     return dict(launches=launches, max_abs_err=max_err, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by), dec
+                kernel_ms=k_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by), dec
 
 
 def decoded_ground_truth(dec):
@@ -1222,11 +1428,15 @@ def tile_check(tile, settings, attrs, lists, counts, label):
     gen.manual_seed(29)
     g_out = torch.randn(out_p.shape, generator=gen, device="cuda")
     # both versions replay from the same checkpoints: the same chunk stops
-    gr_k = tile.tile_bwd_cuda(settings, planes, cnt, chk_p, g_out)
+    gr_k = tile.tile_bwd_cuda(settings, planes, cnt, out_p, chk_p, g_out)
+    gr_k2 = tile.tile_bwd_cuda(settings, planes, cnt, out_p, chk_p, g_out)
     gr_p, pairs_b = tile.tile_bwd_plain(settings, planes, cnt, chk_p, g_out)
     torch.cuda.synchronize()
     if not torch.isfinite(gr_k).all():
         raise AssertionError(f"{label}: B5b gave non-finite gradients")
+    if not torch.equal(gr_k, gr_k2):
+        raise AssertionError(f"{label}: two B5b launches on the same inputs "
+                             f"gave different per-slot rows")
     bwd_err = bwd_rel_err(gr_k, gr_p, 1)
     bwd_abs = float((gr_k - gr_p).abs().max())
     v_n, m = attrs.shape[0], attrs.shape[1]
@@ -1254,8 +1464,10 @@ def tile_check(tile, settings, attrs, lists, counts, label):
                              f"version: {bwd_err} > {BWD_REL_ERR} of the "
                              f"largest gradient")
     f_ms = cuda_ms(lambda: tile.tile_fwd_cuda(settings, planes, cnt), 10)
-    b_ms = cuda_ms(lambda: tile.tile_bwd_cuda(settings, planes, cnt, chk_p,
-                                              g_out), 5)
+    b_ms = cuda_ms(lambda: tile.tile_bwd_cuda(settings, planes, cnt, out_p,
+                                              chk_p, g_out), 5)
+    b_kernel, _ = kernel_ms(lambda: tile.tile_bwd_cuda(
+        settings, planes, cnt, out_p, chk_p, g_out), "tile_bwd_kernel", 5)
     f_plain = cuda_ms(lambda: tile.tile_fwd_plain(settings, planes, cnt), 1)
     b_plain = cuda_ms(lambda: tile.tile_bwd_plain(settings, planes, cnt,
                                                   chk_p, g_out), 1)
@@ -1271,12 +1483,20 @@ def tile_check(tile, settings, attrs, lists, counts, label):
         f"pairs); B5b max |kernel - plain| / max |plain| {bwd_err:.3e} "
         f"(limit {BWD_REL_ERR:.0e}; max |kernel - plain| {bwd_abs:.3e}; "
         f"per-slot rows and the gather's transpose with and without "
-        f"means2d), kernel {b_ms:.4f} ms, plain {b_plain:.3f} ms, bound "
+        f"means2d; two launches bit-identical), kernel {b_ms:.4f} ms, "
+        f"alone {b_kernel:.4f} ms, plain {b_plain:.3f} ms, bound "
         f"{bb[0]:.4f} ms ({bb[1]}; {pairs_b} pairs)")
+    from gsvc_tpu_torch.render.bidir import column_shape
+
+    work, heaviest = tile_bwd_work(settings, cnt, chk_p, pairs_b)
+    threads, ppt = column_shape(settings, "B5b")
+    log(f"{label}: B5b launch {threads} threads x {ppt} pixels; work per "
+        f"block: {work}")
+    log(f"{label}: B5b {floors('B5b', pairs_b, heaviest, threads)}")
     return (dict(ms=f_ms, plain_ms=f_plain, bound_ms=fb[0], bound_by=fb[1],
                  max_abs_err=fwd_err),
-            dict(ms=b_ms, plain_ms=b_plain, bound_ms=bb[0], bound_by=bb[1],
-                 max_abs_err=bwd_abs))
+            dict(ms=b_ms, kernel_ms=b_kernel, plain_ms=b_plain,
+                 bound_ms=bb[0], bound_by=bb[1], max_abs_err=bwd_abs))
 
 
 def tile_kernel_phase(tile, settings):
@@ -1997,17 +2217,26 @@ def main() -> int:
     for name, text in logs.items():
         for line in ptxas_report(text, name):
             log(f"  {name}: {line}")
-    sass_floors(build)
+    global SM_CLOCK_MHZ
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True,
+        text=True).stdout.strip().splitlines()
+    SM_CLOCK_MHZ = int(clock[0]) if clock and clock[0].isdigit() else None
+    log(f"SM clock (clocks.max.sm): {SM_CLOCK_MHZ} MHz; "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
 
     settings = RasterSettings(image_height=1080, image_width=1920,
                               threshold=0.1, tile_h=16, tile_w=128,
                               gaussian_cap=1024, chunk=128,
                               tiles_per_gaussian=32)
-    kernel_err = kernel_phase(bidir, settings)
     train_settings = RasterSettings(image_height=1080, image_width=1920,
                                     threshold=0.05, tile_h=8, tile_w=128,
                                     gaussian_cap=1024, chunk=128,
                                     tiles_per_gaussian=32)
+    SASS_PER_PAIR.update(sass_floors(build, sass_kernels(
+        bidir, settings, train_settings)))
+    kernel_err, _ = kernel_phase(bidir, settings)
     mk_fwd, mk_bwd = mirror_kernel_phase(mirror, train_settings)
     t5f, t5b = tile_kernel_phase(tile, train_settings)
     res, dec = slice_phase(bidir)
@@ -2051,6 +2280,7 @@ def main() -> int:
         "launches": res["launches"],
         "max_abs_err": max(kernel_err, res["max_abs_err"]),
         "ms": res["ms"],
+        "kernel_ms": res["kernel_ms"],   # the kernel alone (torch.profiler)
         "plain_ms": res["plain_ms"],
         "bound_ms": res["bound_ms"],
         "bound_by": res["bound_by"],
@@ -2125,6 +2355,7 @@ def main() -> int:
         "launches": b5b["launches"],
         "max_abs_err": max(t5b["max_abs_err"], b5b["max_abs_err"]),
         "ms": b5b["ms"],
+        "kernel_ms": b5b["kernel_ms"],   # the kernel alone (torch.profiler)
         "plain_ms": b5b["plain_ms"],
         "bound_ms": b5b["bound_ms"],
         "bound_by": b5b["bound_by"],

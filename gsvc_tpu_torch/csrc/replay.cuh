@@ -1,10 +1,11 @@
 // Pieces of the mirror kernels B1 (mirror_fwd.cu) and B2 (mirror_bwd.cu) as laid out
-// for Hopper, written so that the other tile-compositing backwards (B5b, B6b) can take
-// them too:
+// for Hopper, taken also by B4 (bidir.cu) and B5b (tile_bwd.cu), and written so that
+// B6b can take them too:
 //
 //   * Stage: one chunk of a tile's copies in shared memory, 48 B per copy, filled by
-//     cp.async straight from the [m, 9] rows (no registers, no wait until the data is
-//     needed) and read back with three vector loads;
+//     cp.async straight from the [m, 9] rows or the nine [rows, cap] planes (no
+//     registers, no wait until the data is needed) and read back with three vector
+//     loads;
 //   * Column: a copy as seen by one thread of a block whose pixels all lie in one tile
 //     column (threads a multiple of tile_w), with the x terms of the alpha formed once
 //     per copy instead of once per pixel;
@@ -79,6 +80,35 @@ __device__ __forceinline__ void finish_rows(Stage& st, const int* ids, int chunk
       p.w *= -0.5f;
       st.v[i][1].x *= -0.5f;
     }
+  }
+}
+
+// Issues the copy of the `chunk` slots at `base` of the nine planes (B5f/B5b's
+// [rows, cap] attribute planes) into the stage.  Slot i belongs to thread
+// i mod blockDim.x, as in stage_rows.  The copies are 4 bytes: the stage interleaves a
+// copy's nine values, so no 16-byte run of a plane lands in one piece.  A chunk's
+// 1,152 copies, spread over the block, cost a thread ~10 instructions against ~10^5
+// of replay.
+__device__ __forceinline__ void stage_planes(Stage& st, const Planes& pl, size_t base,
+                                            int chunk) {
+  for (int i = threadIdx.x; i < chunk; i += blockDim.x) {
+    float* dst = &st.v[i][0].x;
+#pragma unroll
+    for (int q = 0; q < 9; ++q) cp_async4(dst + q, pl.p[q] + base + i, true);
+  }
+}
+
+// After cp_async_wait_all: makes the calling thread's staged plane slots tile-local
+// with the conic scaled by -1/2, as load_plane_chunk stages them (every slot: a
+// padding slot carries opacity 0).
+__device__ __forceinline__ void finish_planes(Stage& st, int chunk, float cx, float cy) {
+  for (int i = threadIdx.x; i < chunk; i += blockDim.x) {
+    float4& p = st.v[i][0];
+    p.x -= cx;
+    p.y -= cy;
+    p.z *= -0.5f;
+    p.w *= -0.5f;
+    st.v[i][1].x *= -0.5f;
   }
 }
 

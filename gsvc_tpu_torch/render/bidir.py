@@ -16,7 +16,10 @@ used chunk down to that stop, compositing the flip view until its
 transmittance saturates.  Dropped terms carry weight < T_EPS.
 
 ``bidir_composite_attrs`` launches the CUDA kernel
-(``gsvc_tpu_torch/csrc/bidir.cu``) on CUDA tensors and runs
+(``gsvc_tpu_torch/csrc/bidir.cu``: one thread-block cluster of
+``B4_CLUSTER`` CTAs per tile, each CTA a band of the tile's rows, the
+tile's chunk stops voted through distributed shared memory, the tiles
+launched heaviest first) on CUDA tensors and runs
 ``bidir_composite_plain`` — the same function in plain PyTorch, tiles
 vectorised, chunk by chunk, with the same per-tile loop stops as masks —
 on CPU tensors.  Port of ``bidir_composite_attrs`` /
@@ -34,12 +37,23 @@ from gsvc_tpu_torch.render.splat import (
     ALPHA_MAX, ALPHA_MIN, T_EPS, RasterSettings, assemble_views,
 )
 
-# kernel limits (csrc/composite.cuh, shared by B1, B2 and B4): a chunk
-# fits the shared-memory stage and every thread of a block owns the same
-# number of a tile's pixels
+# kernel limits (csrc/composite.cuh, shared by the compositing kernels):
+# a chunk fits the shared-memory stage and every thread of a block owns
+# the same number of a tile's pixels
 MAX_CHUNK = 128
 MAX_PIXELS_PER_THREAD = 16
 BLOCK_THREADS = 256
+# blocks of one thread a pixel column (B1/B2, B4's CTAs, B5b): at least
+# COLUMN_THREADS threads, more where the tile is wider or holds more than
+# COLUMN_PPT pixels a thread (B2 spills registers at 16)
+COLUMN_THREADS = 128
+COLUMN_PPT = 8
+# kernel B4's launch plan: a cluster of B4_CLUSTER CTAs per tile (halved
+# until it divides tile_h), each CTA tile_h / B4_CLUSTER rows of every
+# column.  With the tiles launched heaviest first, 2, 4 and 8 CTAs a
+# tile ran a decoded 1080p frame equally fast and 2 ran the synthetic
+# tiles fastest; one CTA a tile was 1.4x slower on the frame (PERF.md §6).
+B4_CLUSTER = 2
 
 
 def _check_inputs(settings: RasterSettings, attrs, tile_lists, counts):
@@ -80,18 +94,69 @@ def check_float32(settings: RasterSettings):
             f"{settings.matmul_dtype!r} are TPU MXU precision policies")
 
 
-def _kernel_shape(settings: RasterSettings):
-    """(threads per block, pixels per thread) the kernel runs with."""
+def _shape_error(kernels, settings, what):
+    return ValueError(
+        f"kernels {kernels} take chunk <= {MAX_CHUNK} and {what}, at most "
+        f"{BLOCK_THREADS} threads x 2^k pixels (k <= 4); got chunk "
+        f"{settings.chunk}, tile {settings.tile_h}x{settings.tile_w}")
+
+
+def _pixels_ok(settings, p_pix, threads):
+    ppt = p_pix // threads
+    return (settings.chunk <= MAX_CHUNK and not p_pix % threads
+            and ppt <= MAX_PIXELS_PER_THREAD and not ppt & (ppt - 1))
+
+
+def tile_shape(settings: RasterSettings, kernels: str):
+    """(threads a block, pixels a thread) of a block over a tile's
+    pixels, at most BLOCK_THREADS threads (kernels B5f and B6f/B6b):
+    128 x 1 at 8x16 tiles, 256 x 4 at 8x128, 256 x 8 at 16x128.
+    ``kernels`` names them in the error."""
     p_pix = settings.tile_h * settings.tile_w
     threads = min(BLOCK_THREADS, p_pix)
-    ppt = p_pix // threads
-    if (settings.chunk > MAX_CHUNK or p_pix % threads
-            or ppt > MAX_PIXELS_PER_THREAD or ppt & (ppt - 1)):
-        raise ValueError(
-            f"the compositing kernels take chunk <= {MAX_CHUNK} and tiles of "
-            f"{BLOCK_THREADS} x 2^k pixels (k <= 4); got chunk "
-            f"{settings.chunk}, tile {settings.tile_h}x{settings.tile_w}")
-    return threads, ppt
+    if not _pixels_ok(settings, p_pix, threads):
+        raise _shape_error(kernels, settings, "tiles of whole blocks")
+    return threads, p_pix // threads
+
+
+def column_shape(settings: RasterSettings, kernels: str, rows=None,
+                 whole_warps: bool = True):
+    """(threads a block, pixels a thread) of a block over ``rows`` rows
+    of a tile (all of them by default) with one thread a pixel column,
+    so a thread's pixels share x (kernels B1/B2, B4's CTAs, B5b): a
+    multiple of tile_w, whole warps where the kernel reduces over warps
+    (``whole_warps``; B4 does not), at least COLUMN_THREADS, at most
+    COLUMN_PPT pixels a thread while BLOCK_THREADS allows; 128 x 8 at
+    8x128 tiles, 256 x 8 at 16x128.  ``kernels`` names them in the
+    error."""
+    tw = settings.tile_w
+    p_pix = (settings.tile_h if rows is None else rows) * tw
+    threads = min(p_pix, BLOCK_THREADS,
+                  max(COLUMN_THREADS, tw, p_pix // COLUMN_PPT))
+    if (whole_warps and threads % 32 or threads % tw
+            or not _pixels_ok(settings, p_pix, threads)):
+        raise _shape_error(kernels, settings, "blocks of whole "
+                           + ("warps of columns" if whole_warps
+                              else "columns"))
+    return threads, p_pix // threads
+
+
+def bidir_launch_plan(settings: RasterSettings, cluster=None):
+    """(CTAs a tile, threads a CTA, pixels a thread) of kernel B4.
+    ``cluster`` None takes B4_CLUSTER, halved until it divides tile_h;
+    a given size must divide it.  Each CTA is a ``column_shape`` block
+    over its band of rows: 2 x 128 x 8 at 16x128 tiles, 2 x 128 x 4 at
+    8x128."""
+    th = settings.tile_h
+    if cluster is None:
+        cluster = B4_CLUSTER
+        while th % cluster:
+            cluster //= 2
+    if cluster < 1 or th % cluster:
+        raise ValueError(f"kernel B4 splits a tile's {th} rows over its "
+                         f"cluster: {cluster} CTAs do not divide them")
+    return (cluster, *column_shape(settings, "B4", rows=th // cluster,
+                                   whole_warps=False))
 
 
 def _lib():
@@ -100,34 +165,42 @@ def _lib():
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.restype = ci
-        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
-                       ci, ctypes.c_float, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
+                       ci, ci, ci, ctypes.c_float, vp]
     return lib
 
 
-def bidir_out4_cuda(settings: RasterSettings, attrs, tile_lists, counts):
-    """Launch the kernel once.  Returns [F*T, 4, P] tiles: rows 0:3 the
-    fwd/flip-averaged colour (+ bg), row 3 the total transmittance."""
+def bidir_out4_cuda(settings: RasterSettings, attrs, tile_lists, counts,
+                    cluster=None):
+    """Launch the kernel once, ``cluster`` CTAs a tile (None: the launch
+    plan's; every size gives the same bits), the tiles' clusters in
+    falling order of their copies (one sort of the counts on the card).
+    Returns [F*T, 4, P] tiles: rows 0:3 the fwd/flip-averaged colour
+    (+ bg), row 3 the total transmittance.  A launch the card refuses
+    raises."""
     _check_inputs(settings, attrs, tile_lists, counts)
     for name, t in (("attrs", attrs), ("tile_lists", tile_lists),
                     ("counts", counts)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    threads, ppt = _kernel_shape(settings)
+    cluster, threads, ppt = bidir_launch_plan(settings, cluster)
     f_n, m, _ = attrs.shape
     p_pix = settings.tile_h * settings.tile_w
     out4 = torch.empty((f_n * settings.n_tiles, 4, p_pix),
                        dtype=torch.float32, device=attrs.device)
+    order = torch.argsort(counts.reshape(-1), descending=True,
+                          stable=True).to(torch.int32)
     with torch.cuda.device(attrs.device):
         stream = torch.cuda.current_stream(attrs.device).cuda_stream
         err = _lib().bidir_composite(
             attrs.data_ptr(), tile_lists.data_ptr(), counts.data_ptr(),
-            out4.data_ptr(), f_n, m, settings.n_tiles, settings.n_tiles_x,
-            settings.tile_w, settings.gaussian_cap, settings.chunk,
-            threads, ppt, float(settings.bg), stream)
+            order.data_ptr(), out4.data_ptr(), f_n, m, settings.n_tiles,
+            settings.n_tiles_x, settings.tile_w, settings.gaussian_cap,
+            settings.chunk, cluster, threads, ppt, float(settings.bg),
+            stream)
     if err != 0:
-        raise RuntimeError(f"bidir_composite launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"bidir_composite launch of {cluster} CTAs a "
+                           f"tile failed: CUDA error {err}")
     return out4
 
 

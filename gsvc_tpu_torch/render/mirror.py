@@ -49,8 +49,7 @@ import torch
 
 from gsvc_tpu_torch.build import load
 from gsvc_tpu_torch.render.bidir import (
-    BLOCK_THREADS, MAX_CHUNK, MAX_PIXELS_PER_THREAD, _check_inputs,
-    check_float32,
+    _check_inputs, check_float32, column_shape,
 )
 from gsvc_tpu_torch.render.splat import (
     ALPHA_MAX, ALPHA_MIN, T_EPS, RasterSettings,
@@ -59,11 +58,6 @@ from gsvc_tpu_torch.render.splat import (
 # grid rows per batch of the plain versions (bounds their [rows, chunk, P]
 # temporaries: ~0.5 GB each at P = 1024)
 PLAIN_BATCH = 1024
-# kernels B1/B2's block: at least MIRROR_THREADS threads, more where the
-# tile is wider or holds more than MIRROR_PPT pixels a thread (B2 spills
-# registers at 16)
-MIRROR_THREADS = 128
-MIRROR_PPT = 8
 
 
 def check_inputs(settings: RasterSettings, attrs, tile_lists, counts):
@@ -72,28 +66,6 @@ def check_inputs(settings: RasterSettings, attrs, tile_lists, counts):
     check_float32(settings)
     _check_inputs(settings, attrs, tile_lists, counts)
     return attrs.shape[0]
-
-
-def mirror_kernel_shape(settings: RasterSettings):
-    """(threads per block, pixels per thread) of kernels B1/B2.  Every
-    thread owns one pixel column of the tile (threads a multiple of
-    tile_w), so its pixels share x: at least MIRROR_THREADS threads,
-    whole warps, at most BLOCK_THREADS, at most MIRROR_PPT pixels a
-    thread where BLOCK_THREADS allows; 128 x 8 at 8x128 tiles, 256 x 8 at
-    16x128."""
-    p_pix = settings.tile_h * settings.tile_w
-    threads = min(p_pix, BLOCK_THREADS,
-                  max(MIRROR_THREADS, settings.tile_w, p_pix // MIRROR_PPT))
-    ppt = p_pix // threads
-    if (settings.chunk > MAX_CHUNK
-            or threads % 32 or threads % settings.tile_w or p_pix % threads
-            or ppt > MAX_PIXELS_PER_THREAD or ppt & (ppt - 1)):
-        raise ValueError(
-            f"kernels B1/B2 take chunk <= {MAX_CHUNK} and tiles of whole "
-            f"warps of columns, at most {BLOCK_THREADS} threads x 2^k "
-            f"pixels (k <= 4); got chunk {settings.chunk}, tile "
-            f"{settings.tile_h}x{settings.tile_w}")
-    return threads, ppt
 
 
 def grid_rows(settings: RasterSettings, f_n: int, device):
@@ -129,7 +101,7 @@ def _require_contiguous(**tensors):
 
 
 def _launch(fn, settings, f_n, m, ptrs, device):
-    threads, ppt = mirror_kernel_shape(settings)
+    threads, ppt = column_shape(settings, "B1/B2")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*ptrs, f_n, m, settings.n_tiles, settings.n_tiles_x,

@@ -45,7 +45,7 @@ import torch
 
 from gsvc_tpu_torch.build import load
 from gsvc_tpu_torch.render import mirror
-from gsvc_tpu_torch.render.bidir import _kernel_shape, check_float32
+from gsvc_tpu_torch.render.bidir import check_float32, tile_shape
 from gsvc_tpu_torch.render.splat import RasterSettings
 
 N_ATTR = 9
@@ -170,7 +170,7 @@ def _fn(lib: str, name: str, n_ptrs: int):
 
 
 def _launch(fn, settings, f_n, b_max, ptrs, device):
-    threads, ppt = _kernel_shape(settings)
+    threads, ppt = tile_shape(settings, "B6f/B6b")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*ptrs, f_n, settings.n_tiles, settings.n_tiles_x,

@@ -15,11 +15,16 @@ or no pixel of the tile (the pixels past the image's right and bottom
 edges included) keeps T >= T_EPS.  Training saves ``t_chk [V*T,
 n_chunks + 1, P]``: the T before every chunk, the chunks after the stop
 filled with the final T, the last row the exact final T.  The backward
-replays the chunks in reverse from ``c_hot`` (the last used chunk with a
-live pixel) with a suffix accumulator seeded by ``t_final * (bg *
-sum(g_rgb) + g_T)`` and gives every (row, slot) its 9 attribute
-gradients in ``[V*T, 9, cap]``.  The gradients reach the per-gaussian
-rows (and ``means2d``) through the autograd of the plane gather.
+replays the chunks up to ``c_hot`` (the last used chunk with a live
+pixel), each copy's suffix being everything composited after it plus
+``t_final * (bg * sum(g_rgb) + g_T)``, and gives every (row, slot) its 9
+attribute gradients in ``[V*T, 9, cap]``: the plain version walks back
+from ``c_hot`` with a suffix accumulator, kernel B5b walks forward from
+chunk 0 with one alpha evaluation a pair and takes each suffix from the
+forward's ``out4`` minus a running sum (B2's replay, ``csrc/replay.cuh``),
+so the backward takes ``out4`` too.  The gradients reach the
+per-gaussian rows (and ``means2d``) through the autograd of the plane
+gather.
 
 Only float32 compositing is ported: ``compute_dtype`` and ``matmul_dtype``
 other than float32 are TPU MXU precision policies and raise.
@@ -33,9 +38,10 @@ import torch
 
 from gsvc_tpu_torch.build import load
 from gsvc_tpu_torch.render import mirror
-from gsvc_tpu_torch.render.bidir import _kernel_shape, check_float32
+from gsvc_tpu_torch.render.bidir import (
+    check_float32, column_shape, tile_shape,
+)
 from gsvc_tpu_torch.render.splat import RasterSettings
-
 
 def check_planes(settings: RasterSettings, planes, counts) -> int:
     """Validate the composite's inputs; returns the row count V*T."""
@@ -85,8 +91,10 @@ def _plane_ptrs(planes):
     return (ctypes.c_void_p * 9)(*(p.data_ptr() for p in planes))
 
 
-def _launch(fn, settings, n_rows, ptrs, device):
-    threads, ppt = _kernel_shape(settings)
+def _launch(fn, settings, n_rows, ptrs, device, backward):
+    # B5b runs one thread a column (the column form of its moments)
+    threads, ppt = (column_shape(settings, "B5b") if backward
+                    else tile_shape(settings, "B5f"))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*ptrs, n_rows, settings.n_tiles, settings.n_tiles_x,
@@ -112,32 +120,46 @@ def tile_fwd_cuda(settings: RasterSettings, planes, counts,
                         device=dev) if save_tchk else None
     _launch(_fn("tile_fwd", "tile_forward", 3), settings, n_rows,
             (ptrs, counts.data_ptr(), out4.data_ptr(),
-             t_chk.data_ptr() if save_tchk else None), dev)
+             t_chk.data_ptr() if save_tchk else None), dev, False)
     return out4, t_chk
 
 
-def tile_bwd_cuda(settings: RasterSettings, planes, counts, t_chk, g_out):
-    """Launch kernel B5b once.  Returns the per-slot gradients
-    [V*T, 9, cap]."""
+def check_backward_inputs(settings: RasterSettings, planes, counts, out4,
+                          t_chk, g_out) -> int:
+    """Validate the backward's inputs: B5f's outputs ``out4`` and
+    ``t_chk`` and the cotangent ``g_out``, float32 on the planes' device.
+    Returns the row count V*T."""
     n_rows = check_planes(settings, planes, counts)
-    ptrs = _plane_ptrs(planes)
     p_pix = settings.tile_h * settings.tile_w
     n_chunks = settings.gaussian_cap // settings.chunk
-    for name, t, shape in (("t_chk", t_chk, (n_rows, n_chunks + 1, p_pix)),
-                           ("g_out", g_out, (n_rows, 4, p_pix)),
-                           ("counts", counts, (n_rows,))):
-        if tuple(t.shape) != shape or not t.is_cuda \
-                or not t.is_contiguous():
-            raise ValueError(f"{name}: expected a contiguous CUDA tensor "
-                             f"{shape}, got {tuple(t.shape)} on {t.device}")
-    if t_chk.dtype != torch.float32 or g_out.dtype != torch.float32:
-        raise ValueError("t_chk and g_out must be float32")
+    for name, t, shape in (("out4", out4, (n_rows, 4, p_pix)),
+                           ("t_chk", t_chk, (n_rows, n_chunks + 1, p_pix)),
+                           ("g_out", g_out, (n_rows, 4, p_pix))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape \
+                or t.device != planes[0].device:
+            raise ValueError(f"{name}: expected float32 {shape} on "
+                             f"{planes[0].device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    return n_rows
+
+
+def tile_bwd_cuda(settings: RasterSettings, planes, counts, out4, t_chk,
+                  g_out):
+    """Launch kernel B5b once on B5f's outputs ``out4`` and ``t_chk``.
+    Returns the per-slot gradients [V*T, 9, cap]."""
+    n_rows = check_backward_inputs(settings, planes, counts, out4, t_chk,
+                                   g_out)
+    ptrs = _plane_ptrs(planes)
+    for name, t in (("counts", counts), ("out4", out4), ("t_chk", t_chk),
+                    ("g_out", g_out)):
+        if not t.is_cuda or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous CUDA tensor")
     dev = planes[0].device
     grads = torch.empty((n_rows, 9, settings.gaussian_cap),
                         dtype=torch.float32, device=dev)
-    _launch(_fn("tile_bwd", "tile_backward", 4), settings, n_rows,
-            (ptrs, counts.data_ptr(), t_chk.data_ptr(), g_out.data_ptr(),
-             grads.data_ptr()), dev)
+    _launch(_fn("tile_bwd", "tile_backward", 5), settings, n_rows,
+            (ptrs, counts.data_ptr(), out4.data_ptr(), t_chk.data_ptr(),
+             g_out.data_ptr(), grads.data_ptr()), dev, True)
     return grads
 
 
@@ -164,16 +186,19 @@ def tile_forward(settings: RasterSettings, planes, counts,
 tile_forward.launches = 0
 
 
-def tile_backward(settings: RasterSettings, planes, counts, t_chk, g_out):
-    """Per-slot gradients [V*T, 9, cap].  CUDA tensors launch kernel B5b
-    (and add one to ``tile_backward.launches``); CPU tensors take the
-    plain version; any other device raises."""
+def tile_backward(settings: RasterSettings, planes, counts, out4, t_chk,
+                  g_out):
+    """Per-slot gradients [V*T, 9, cap] from the forward's ``out4`` and
+    ``t_chk``.  CUDA tensors launch kernel B5b (and add one to
+    ``tile_backward.launches``); CPU tensors take the plain version,
+    which needs no ``out4``; any other device raises."""
     dev = planes[0].device
     if dev.type == "cuda":
-        res = tile_bwd_cuda(settings, planes, counts, t_chk, g_out)
+        res = tile_bwd_cuda(settings, planes, counts, out4, t_chk, g_out)
         tile_backward.launches += 1
         return res
     if dev.type == "cpu":
+        check_backward_inputs(settings, planes, counts, out4, t_chk, g_out)
         grads, _ = tile_bwd_plain(settings, planes, counts, t_chk, g_out)
         return grads
     raise ValueError(f"tile_backward: unsupported device {dev}")
@@ -193,15 +218,15 @@ class _TileComposite(torch.autograd.Function):
         if timer is not None:
             timer.mark("b5f_end")
         ctx.settings, ctx.timer = settings, timer
-        ctx.save_for_backward(counts, t_chk, *planes)
+        ctx.save_for_backward(counts, out4, t_chk, *planes)
         return out4
 
     @staticmethod
     def backward(ctx, g_out):
-        counts, t_chk, *planes = ctx.saved_tensors
+        counts, out4, t_chk, *planes = ctx.saved_tensors
         if ctx.timer is not None:
             ctx.timer.mark("b5b_start")
-        grads = tile_backward(ctx.settings, planes, counts, t_chk,
+        grads = tile_backward(ctx.settings, planes, counts, out4, t_chk,
                               g_out.contiguous())
         if ctx.timer is not None:
             ctx.timer.mark("b5b_end")

@@ -148,10 +148,29 @@ def test_wrapper_rejects_malformed_inputs(bad):
 
 
 def test_kernel_shape_limits():
-    assert bidir._kernel_shape(SET) == (128, 1)
+    """B4's launch plan: B4_CLUSTER CTAs a tile, each a band of rows of
+    every column (one thread a column): 2 x 64 x 1 at 8x16 (8 x 16 x 1
+    at 8 CTAs: partial warps), 2 x 128 x 8 at the decode tiles
+    (16x128), 2 x 128 x 4 at the training tiles;
+    the cluster halves until it divides tile_h; a given size that does
+    not divide it, or a chunk past the stage, is refused."""
+    assert bidir.B4_CLUSTER == 2
+    assert bidir.bidir_launch_plan(SET) == (2, 64, 1)
+    # B4 reduces over no warp: a CTA of one 16-pixel row is taken
+    assert bidir.bidir_launch_plan(SET, cluster=8) == (8, 16, 1)
     wide = dataclasses.replace(SET, tile_h=16, tile_w=128)
-    assert bidir._kernel_shape(wide) == (256, 8)
+    assert bidir.bidir_launch_plan(wide) == (2, 128, 8)
+    assert bidir.bidir_launch_plan(wide, cluster=1) == (1, 256, 8)
+    assert bidir.bidir_launch_plan(wide, cluster=4) == (4, 128, 4)
+    assert bidir.bidir_launch_plan(wide, cluster=8) == (8, 128, 2)
+    train = dataclasses.replace(wide, tile_h=8)
+    assert bidir.bidir_launch_plan(train) == (2, 128, 4)
+    low = dataclasses.replace(wide, tile_h=1, tile_w=256,
+                              image_width=256)
+    assert bidir.bidir_launch_plan(low) == (1, 256, 1)
+    with pytest.raises(ValueError, match="3 CTAs"):
+        bidir.bidir_launch_plan(wide, cluster=3)
     with pytest.raises(ValueError):
-        bidir._kernel_shape(dataclasses.replace(SET, chunk=256,
-                                                gaussian_cap=512))
+        bidir.bidir_launch_plan(dataclasses.replace(SET, chunk=256,
+                                                    gaussian_cap=512))
 

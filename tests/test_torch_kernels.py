@@ -20,9 +20,17 @@ seeded tiles, B1/B2 take the replay cases of
 tests/test_torch_mirror_replay.py: a tile whose T underflows to 0 inside
 a replayed chunk, a warp dead from position 1 on, 8x128 tiles.
 
+B4 runs one thread-block cluster per tile, heaviest tiles first: every
+cluster size its C entry takes gives the same bits, and a cluster the
+card refuses raises.
+
 Single-view kernels B5f/B5b (widths that are not a multiple of tile_w):
 the forward and checkpoints to 2 T_EPS, the gradients to 2e-3 of each
-attribute's largest magnitude, for the reasons given for B1/B2.
+attribute's largest magnitude, for the reasons given for B1/B2; B5b
+(B2's replay on B5f's out4) adds no float atomics either, and takes the
+replay cases of tests/test_torch_tile_replay.py and the 16x128 tiles
+(256 threads, past the 48 KiB of shared memory a block gets without
+opting in).
 
 Stream kernels B6f/B6b (the chunk-aligned copy stream of the same seeded
 lists, chunk 16 and 128, with dead tail blocks): the forward and the
@@ -39,6 +47,8 @@ kernel forms each position gradient as sum_c r_c dw_c with r_c = sum_f
 g_f (V_cf - out_f) / W where autograd takes the two terms apart.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -46,10 +56,12 @@ import torch
 from gsvc_tpu_torch.ops import hashgrid_kernels as hk
 from gsvc_tpu_torch.ops.hashgrid import make_mix_grid_spec
 from gsvc_tpu_torch.render import bidir, mirror, stream, tile
+from gsvc_tpu_torch.render.bidir import column_shape
 from gsvc_tpu_torch.render.splat import (
     T_EPS, RasterSettings, gather_tile_planes_rows,
 )
 from test_torch_mirror_replay import _case as replay_case
+from test_torch_tile_replay import _case as tile_replay_case
 
 SMALL = RasterSettings(image_height=40, image_width=48, threshold=0.15,
                        tile_h=8, tile_w=16, gaussian_cap=64, chunk=16,
@@ -112,6 +124,97 @@ def test_bidir_kernel_matches_plain(shape, opacity_hi):
     assert torch.isfinite(img_k).all()
     torch.testing.assert_close(img_k, img_p, atol=2 * T_EPS, rtol=0)
     torch.testing.assert_close(tau_k, tau_p, atol=2 * T_EPS, rtol=0)
+
+
+def _strip(settings, seed):
+    """A decoded frame's imbalance: a vertical strip of full tiles (two
+    tile columns, every count at cap, copies that keep the strip
+    unsaturated so every chunk is walked) among tiles of 0-40 copies."""
+    rng = np.random.default_rng(seed)
+    t_n, cap, ntx = settings.n_tiles, settings.gaussian_cap, \
+        settings.n_tiles_x
+    col = np.arange(t_n) % ntx
+    strip = (col == ntx // 2) | (col == ntx // 2 + 1)
+    cnt = np.where(strip, cap, rng.integers(0, 41, t_n)).astype(np.int32)
+    m = int(cnt.sum())
+    owner = np.repeat(np.arange(t_n), cnt)
+    tw, th = settings.tile_w, settings.tile_h
+    rows = np.zeros((m, 9), np.float32)
+    rows[:, 0] = (owner % ntx) * tw + rng.uniform(-0.25, 1.25, m) * tw
+    rows[:, 1] = (owner // ntx) * th + rng.uniform(-0.25, 1.25, m) * th
+    sig = rng.uniform(1, 30, (m, 2))
+    rows[:, 2] = 1 / sig[:, 0] ** 2
+    rows[:, 4] = 1 / sig[:, 1] ** 2
+    rows[:, 5] = np.where(strip[owner], rng.uniform(0.003, 0.01, m),
+                          rng.uniform(0.05, 0.9, m))
+    rows[:, 6:9] = rng.uniform(0, 1, (m, 3))
+    lists = np.full((t_n, cap), -1, np.int32)
+    start = np.cumsum(cnt) - cnt
+    lists[owner, np.arange(m) - start[owner]] = np.arange(m, dtype=np.int32)
+    return (torch.from_numpy(rows)[None].cuda(),
+            torch.from_numpy(lists)[None].cuda(),
+            torch.from_numpy(cnt)[None].cuda())
+
+
+STRIP = RasterSettings(image_height=160, image_width=768, threshold=0.1,
+                       tile_h=16, tile_w=128, gaussian_cap=1024, chunk=128,
+                       tiles_per_gaussian=32)
+
+
+@pytest.mark.cuda
+def test_bidir_kernel_on_an_imbalanced_frame():
+    """A strip of full, unsaturated tiles among near-empty ones (a decoded
+    frame's imbalance, where one tile holds ~1000x the pairs of most):
+    kernel against its plain version at the decode tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    attrs, lists, counts = _strip(STRIP, 3)
+    out_k = bidir.bidir_out4_cuda(STRIP, attrs, lists, counts)
+    out_p, pairs = bidir.bidir_out4_plain(STRIP, attrs, lists, counts)
+    torch.cuda.synchronize()
+    full = int((counts == STRIP.gaussian_cap).sum())
+    # the strip's tiles walk every chunk: most of the frame's pairs
+    assert full == 2 * STRIP.n_tiles_y and pairs >= 0.8 * full * \
+        STRIP.gaussian_cap * STRIP.tile_h * STRIP.tile_w
+    assert torch.isfinite(out_k).all()
+    torch.testing.assert_close(out_k, out_p, atol=2 * T_EPS, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("settings", [SMALL, DECODE, STRIP],
+                         ids=["small", "decode", "strip"])
+def test_bidir_cluster_sizes_give_the_same_bits(settings):
+    """Every cluster size the C entry takes (1, 2, 4, 8 CTAs a tile)
+    gives the launch plan's output bit for bit: each pixel sees the same
+    copies, operations and tile stops."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if settings is STRIP:
+        attrs, lists, counts = _strip(STRIP, 4)
+    else:
+        attrs, lists, counts = _tiles(settings, seed=5, opacity_hi=0.99)
+    want = bidir.bidir_out4_cuda(settings, attrs, lists, counts)
+    assert bidir.bidir_launch_plan(settings)[0] == bidir.B4_CLUSTER >= 2
+    for cluster in (1, 2, 4, 8):
+        got = bidir.bidir_out4_cuda(settings, attrs, lists, counts,
+                                    cluster=cluster)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), cluster
+
+
+@pytest.mark.cuda
+def test_bidir_refused_cluster_launch_raises():
+    """A cluster the card does not take (16 CTAs without the non-portable
+    attribute) raises instead of running another shape; the next launch
+    runs clean."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    attrs, lists, counts = _tiles(DECODE, seed=6, opacity_hi=0.5)
+    with pytest.raises(RuntimeError, match="16 CTAs a tile"):
+        bidir.bidir_out4_cuda(DECODE, attrs, lists, counts, cluster=16)
+    out = bidir.bidir_out4_cuda(DECODE, attrs, lists, counts)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
 
 
 @pytest.mark.cuda
@@ -405,12 +508,101 @@ def test_tile_kernels_match_plain(shape, opacity_hi):
     g = torch.randn(out_p.shape, device="cuda",
                     generator=torch.Generator("cuda").manual_seed(6))
     before = tile.tile_backward.launches
-    gr_k = tile.tile_backward(settings, planes, counts, chk_p, g)
+    gr_k = tile.tile_backward(settings, planes, counts, out_p, chk_p, g)
     assert tile.tile_backward.launches == before + 1
     gr_p, _ = tile.tile_bwd_plain(settings, planes, counts, chk_p, g)
     torch.cuda.synchronize()
     assert torch.isfinite(gr_k).all()
     _check_bwd(gr_k, gr_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["small", "train"])
+def test_tile_backward_is_deterministic(shape):
+    """B5b adds no float atomics: two launches on the same inputs give
+    the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    settings = SMALL_NARROW if shape == "small" else TRAIN_NARROW
+    planes, counts = _planes(settings, 9, 0.9)
+    out_p, chk_p, _ = tile.tile_fwd_plain(settings, planes, counts)
+    g = torch.randn(out_p.shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(10))
+    first = tile.tile_bwd_cuda(settings, planes, counts, out_p, chk_p, g)
+    second = tile.tile_bwd_cuda(settings, planes, counts, out_p, chk_p, g)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["saturated", "dead_warp", "wide"])
+def test_tile_backward_replay_cases(kind):
+    """B5b on the replay cases of tests/test_torch_tile_replay.py (a
+    column whose T underflows to 0 mid-chunk, a warp dead inside the
+    first chunk, 8x128 tiles; background 0.3) against its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    settings, planes, counts = tile_replay_case(kind)
+    planes = tuple(p.cuda() for p in planes)
+    counts = counts.cuda()
+    out_p, chk_p, _ = tile.tile_fwd_plain(settings, planes, counts)
+    g = torch.randn(out_p.shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(12))
+    gr_k = tile.tile_bwd_cuda(settings, planes, counts, out_p, chk_p, g)
+    gr_p, _ = tile.tile_bwd_plain(settings, planes, counts, chk_p, g)
+    torch.cuda.synchronize()
+    assert torch.isfinite(gr_k).all()
+    _check_bwd(gr_k, gr_p)
+
+
+TALL_NARROW = dataclasses.replace(TRAIN_NARROW, image_height=48, tile_h=16)
+
+
+@pytest.mark.cuda
+def test_tile_kernels_at_tall_tiles():
+    """B5f/B5b at 16x128 tiles, where B5b runs 256 threads and its
+    shared memory passes 48 KiB: forward and backward against their
+    plain versions, and two backward launches give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    assert column_shape(TALL_NARROW, "B5b") == (256, 8)
+    planes, counts = _planes(TALL_NARROW, 14, 0.9)
+    out_k, chk_k = tile.tile_fwd_cuda(TALL_NARROW, planes, counts)
+    out_p, chk_p, _ = tile.tile_fwd_plain(TALL_NARROW, planes, counts)
+    g = torch.randn(out_p.shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(15))
+    gr_k = tile.tile_bwd_cuda(TALL_NARROW, planes, counts, out_p, chk_p, g)
+    gr_k2 = tile.tile_bwd_cuda(TALL_NARROW, planes, counts, out_p, chk_p,
+                               g)
+    gr_p, _ = tile.tile_bwd_plain(TALL_NARROW, planes, counts, chk_p, g)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out_k, out_p, atol=2 * T_EPS, rtol=0)
+    torch.testing.assert_close(chk_k, chk_p, atol=2 * T_EPS, rtol=0)
+    assert torch.isfinite(gr_k).all() and torch.equal(gr_k, gr_k2)
+    _check_bwd(gr_k, gr_p)
+
+
+@pytest.mark.cuda
+def test_tile_composite_autograd_with_background_matches_plain():
+    """``tile_composite`` at the training tiles with a background of 0.3:
+    the backward reads the out4 the autograd function saved (bg inside
+    it) and matches the plain versions on CPU copies."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    settings = dataclasses.replace(TRAIN_NARROW, bg=0.3)
+    planes, counts = _planes(settings, 11, 0.8, n_views=2)
+    outs, grads = [], []
+    for dev in ("cuda", "cpu"):
+        p = tuple(x.to(dev).clone().requires_grad_(True) for x in planes)
+        out = tile.tile_composite(settings, p, counts.to(dev))
+        g = torch.randn(out.shape,
+                        generator=torch.Generator().manual_seed(13))
+        out.backward(g.to(dev))
+        outs.append(out.detach().cpu())
+        grads.append(torch.stack([x.grad.cpu() for x in p], dim=1))
+    torch.testing.assert_close(outs[0], outs[1], atol=2 * T_EPS, rtol=0)
+    assert float(grads[1].abs().max()) > 0
+    _check_bwd(grads[0], grads[1])
 
 
 @pytest.mark.cuda

@@ -37,6 +37,7 @@ import pytest
 import torch
 
 from gsvc_tpu_torch.render import mirror
+from gsvc_tpu_torch.render.bidir import column_shape
 from gsvc_tpu_torch.render.splat import T_EPS, RasterSettings
 
 BWD_REL_ERR = 2e-3
@@ -140,7 +141,7 @@ def replay_emulation(settings, attrs, tile_lists, counts, out4, t_chk,
     n_grid = 2 * f_n * settings.n_tiles
     sel = torch.arange(n_grid)
     tl = mirror._mirror_tiles(settings, attrs, tile_lists, counts, sel)
-    threads, _ = mirror.mirror_kernel_shape(settings)
+    threads, _ = column_shape(settings, "B1/B2")
     p_pix = settings.tile_h * settings.tile_w
     warp_of = (torch.arange(p_pix) % threads) // 32             # [P]
     n_warps = threads // 32
@@ -294,21 +295,21 @@ def test_unreached_slots_are_zero():
 
 
 def test_mirror_kernel_shape():
-    """B1/B2 run one thread per tile column: 128 x 8 at the training
-    tiles, 128 x 1 at 8x16, 256 x 8 at 8x256 and at 16x128 (at most 8
-    pixels a thread while the block allows), 256 x 16 at 16x256, and
-    refuse a tile width that does not divide the block."""
-    assert mirror.mirror_kernel_shape(WIDE) == (128, 8)
-    assert mirror.mirror_kernel_shape(SMALL) == (128, 1)
+    """B1/B2 run one thread per tile column (``column_shape``): 128 x 8
+    at the training tiles, 128 x 1 at 8x16, 256 x 8 at 8x256 and at
+    16x128 (at most 8 pixels a thread while the block allows), 256 x 16
+    at 16x256, and refuse a tile width that does not divide the block."""
+    assert column_shape(WIDE, "B1/B2") == (128, 8)
+    assert column_shape(SMALL, "B1/B2") == (128, 1)
     wider = dataclasses.replace(WIDE, tile_w=256, image_width=512)
-    assert mirror.mirror_kernel_shape(wider) == (256, 8)
+    assert column_shape(wider, "B1/B2") == (256, 8)
     taller = dataclasses.replace(WIDE, tile_h=16, image_height=32)
-    assert mirror.mirror_kernel_shape(taller) == (256, 8)
+    assert column_shape(taller, "B1/B2") == (256, 8)
     both = dataclasses.replace(wider, tile_h=16, image_height=32)
-    assert mirror.mirror_kernel_shape(both) == (256, 16)
+    assert column_shape(both, "B1/B2") == (256, 16)
     odd = dataclasses.replace(SMALL, tile_w=48, image_width=48)
     with pytest.raises(ValueError, match="B1/B2"):
-        mirror.mirror_kernel_shape(odd)
+        column_shape(odd, "B1/B2")
 
 
 def test_mirror_backward_checks_out4():
