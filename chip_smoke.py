@@ -94,10 +94,13 @@
    plain versions on the synthetic 1080p tiles of step 3 laid out as the
    chunk-aligned copy stream, and on the fitted state's pair 299-300
    binned with copy_budget_factor 0 and 8 (``bin_gaussians_stream``);
-   (b) on the same copies B6f against B1 and B6b against B2 (both
-   scattered to the gaussians, with per-view means2d), kernel to kernel,
-   and their times against their bounds and against B1/B2's, taken in
-   turns on the same copies (the log prints B1/B6f and B2/B6b); then (d)
+   (b) on the same copies B6f against B1 (bit for bit) and B6b against
+   B2 (both scattered to the gaussians, with per-view means2d), kernel
+   to kernel, and on each of the three inputs their times against their
+   bounds and against B1/B2's: each kernel alone (torch.profiler) and
+   each call, taken in turns with B1/B2's on the same copies (the log
+   prints B6f/B1 and B6b/B2 alone, B1/B6f and B2/B6b by call), and the
+   padding share of the stream's live blocks; then (d)
    ``gsvc_tpu_torch.cli.stream.main`` on a checkpoint of the fitted state
    with --set pipeline.rasterizer=pallas_stream --set
    pipeline.copy_budget_factor=8 and GSVC_RASTERIZER=pallas_stream (the
@@ -122,8 +125,8 @@
    decoded PSNR.  Then B5f/B5b against their plain versions on the
    fitted state's pair 299-300 (its four views' planes), timed.
 11. Prints the kernel table as one JSON line (``ms``: the wrapper's
-   call, 20 back to back under CUDA events; ``kernel_ms``, B3f, B3b, B4
-   and B5b: the kernel alone), then the result line.
+   call, 20 back to back under CUDA events; ``kernel_ms``, B3f, B3b, B4,
+   B5b, B6f and B6b: the kernel alone), then the result line.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 Frames are written nowhere; the checkpoint goes to a temporary directory.
@@ -340,26 +343,28 @@ def ptxas_report(text: str, lib: str):
 
 
 # kernel instantiations whose inner loops sass_floors counts: the mirror
-# kernels at the training tiles' 8 pixels a thread, the stream kernels
-# (the previous mirror design) at their 4; B4 and B5b join them at the
-# instantiations their launch plans take (sass_kernels)
+# kernels at the training tiles' 8 pixels a thread; B4, B5b and the stream
+# kernels join them at the instantiations their launch plans take
+# (sass_kernels)
 SASS_KERNELS = (("B1", "mirror_fwd", "mirror_fwd_kernelILi8E"),
-                ("B2", "mirror_bwd", "mirror_bwd_kernelILi8E"),
-                ("B6f", "stream_fwd", "stream_fwd_kernelILi4E"),
-                ("B6b", "stream_bwd", "stream_bwd_kernelILi4E"))
+                ("B2", "mirror_bwd", "mirror_bwd_kernelILi8E"))
 # the card's SM clock (MHz, nvidia-smi clocks.max.sm), read in main
 SM_CLOCK_MHZ = None
 
 
-def sass_kernels(bidir, decode_settings, train_settings):
-    """SASS_KERNELS plus B4 at the decode tiles and B5b at the training
-    tiles, each at the pixels a thread its launch plan gives, and how a
-    pair meets the loops: "each" (a pair runs in one of them: B4's front
-    or back loop, a view's copy of a loop) or "sum" (every replayed pair
-    runs in each: a backward that walks a chunk twice)."""
+def sass_kernels(bidir, stream, decode_settings, train_settings):
+    """SASS_KERNELS plus B4 at the decode tiles and B5b, B6f and B6b at
+    the training tiles, each at the pixels a thread its launch plan
+    gives, and how a pair meets the loops: "each" (a pair runs in one of
+    them: B4's front or back loop, a view's copy of a loop) or "sum"
+    (every replayed pair runs in each: a backward that walks a chunk
+    twice)."""
     ppt4 = bidir.bidir_launch_plan(decode_settings)[2]
     ppt5 = bidir.column_shape(train_settings, "B5b")[1]
+    ppt6 = stream.launch_shape(train_settings)[1]
     return tuple((*k, "each") for k in SASS_KERNELS) + (
+        ("B6f", "stream_fwd", f"stream_fwd_kernelILi{ppt6}E", "each"),
+        ("B6b", "stream_bwd", f"stream_bwd_kernelILi{ppt6}E", "each"),
         ("B4", "bidir", f"bidir_kernelILi{ppt4}E", "each"),
         ("B5b", "tile_bwd", f"tile_bwd_kernelILi{ppt5}E", "sum"))
 
@@ -439,7 +444,8 @@ def sass_floors(build, kernels):
     return per_pair
 
 
-# instructions a pair of B4 and B5b (sass_floors), read by their phases
+# instructions a pair of B4, B5b, B6f and B6b (sass_floors), read by their
+# phases
 SASS_PER_PAIR = {}
 
 
@@ -449,8 +455,9 @@ def floors(label, pairs, heaviest, threads):
     chip-wide floor, pairs x instructions / 32 lanes over every
     scheduler of the card (4 an SM) at the SM clock, and the
     critical-path floor, the heaviest block's pairs x instructions over
-    its threads, times its warps a scheduler, at the SM clock.  A string
-    for the log ("not measured" without the SASS count or the clock)."""
+    its threads, times its warps a scheduler, at the SM clock (left out
+    where ``heaviest`` is None).  A string for the log ("not measured"
+    without the SASS count or the clock)."""
     ipp = SASS_PER_PAIR.get(label)
     if ipp is None or not SM_CLOCK_MHZ:
         return "floors not measured (no SASS count or SM clock)"
@@ -458,11 +465,15 @@ def floors(label, pairs, heaviest, threads):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     wps = -(-threads // 128)
     chip = [1e3 * pairs * i / 32 / (sms * 4 * hz) for i in ipp]
-    crit = [1e3 * heaviest * i / threads * wps / hz for i in ipp]
 
     def rng(v):
         return (f"{v[0]:.4f}" if v[0] == v[1]
                 else f"{v[0]:.4f}-{v[1]:.4f}")
+    if heaviest is None:
+        return (f"chip-wide issue floor {rng(chip)} ms ({ipp[0]:.1f}-"
+                f"{ipp[1]:.1f} instructions a pair, {pairs} pairs, {sms} "
+                f"SMs at {SM_CLOCK_MHZ} MHz)")
+    crit = [1e3 * heaviest * i / threads * wps / hz for i in ipp]
     return (f"chip-wide issue floor {rng(chip)} ms, critical-path floor "
             f"{rng(crit)} ms ({ipp[0]:.1f}-{ipp[1]:.1f} instructions a "
             f"pair, {sms} SMs at {SM_CLOCK_MHZ} MHz, heaviest block "
@@ -1627,13 +1638,25 @@ def stream_bounds(settings, bins, pairs_f, pairs_b):
     return fwd, bwd
 
 
+def padding_share(settings, bins):
+    """(live slots, live blocks, padding share): the share of the live
+    blocks' slots that hold no copy, 1 - live slots / (live blocks x
+    chunk) — the slots a walk over every slot of a tile's blocks spends
+    on padding."""
+    live_slots = int((bins[0] >= 0).sum())
+    live_blocks = int((bins[1] >= 0).sum())
+    return (live_slots, live_blocks,
+            1.0 - live_slots / max(live_blocks * settings.chunk, 1))
+
+
 def stream_check(stream, mirror, settings, attrs, bins, lists, counts,
                  label):
     """(a) B6f (with and without checkpoints) and B6b against their plain
     versions on one stream, and the scatter with and without per-view
-    means2d; (b) B6f against B1 and B6b (scattered) against B2 (scattered)
-    on the same copies, kernel to kernel.  Returns the errors, the
-    evaluated pairs and the plain version's outputs for timing."""
+    means2d; (b) B6f against B1 (bit for bit) and B6b (scattered) against
+    B2 (scattered) on the same copies, kernel to kernel.  Returns the
+    errors, the evaluated pairs and the plain version's outputs for
+    timing."""
     sids, m = bins[0], attrs.shape[1]
     rows = stream.stream_rows(attrs, sids)
     out_k, chk_k = stream.stream_fwd_cuda(settings, rows, *bins)
@@ -1687,21 +1710,24 @@ def stream_check(stream, mirror, settings, attrs, bins, lists, counts,
     vs_b2 = max(bwd_rel_err(da_6, da_2, -1),
                 float((dm_6 - dm_2).abs().max())
                 / max(float(dm_2.abs().max()), 1e-30))
-    if not (vs_b1 <= MAX_ABS_ERR and vs_b2 <= BWD_REL_ERR):
+    # B6f composites B1's copies with B1's column alpha, running products
+    # and stops, and ends a block where B1's zero-alpha padding begins
+    if not (torch.equal(out_k, out_1) and vs_b2 <= BWD_REL_ERR):
         raise AssertionError(f"{label}: the stream kernels disagree with "
-                             f"B1/B2: out {vs_b1} (limit {MAX_ABS_ERR}), "
-                             f"gradients {vs_b2} of the largest (limit "
-                             f"{BWD_REL_ERR})")
-    live_blocks = int((bins[1] >= 0).sum())
-    log(f"{label}: {int((sids >= 0).sum())} live slots in {live_blocks} "
-        f"live blocks of {bins[1].numel()} ({int((bins[3] == 1).sum())} "
-        f"tiles of one block); B6f max |kernel - plain| {fwd_err:.3e} "
+                             f"B1/B2: out {vs_b1} (B6f must equal B1 bit "
+                             f"for bit), gradients {vs_b2} of the largest "
+                             f"(limit {BWD_REL_ERR})")
+    live_slots, live_blocks, pad = padding_share(settings, bins)
+    log(f"{label}: {live_slots} live slots in {live_blocks} live blocks of "
+        f"{bins[1].numel()} ({int((bins[3] == 1).sum())} tiles of one "
+        f"block; padding share {pad:.4f}); B6f max |kernel - plain| "
+        f"{fwd_err:.3e} "
         f"(limit {MAX_ABS_ERR:.0e}; out, t_chk and the checkpoint-free "
         f"launch); B6b max |kernel - plain| / max |plain| {bwd_err:.3e} "
         f"(limit {BWD_REL_ERR:.0e}; max |kernel - plain| {bwd_abs:.3e}; "
         f"per-slot rows and the scatter with and without means2d); "
-        f"against B1 max |B6f - B1| {vs_b1:.3e}, against B2 (scattered, "
-        f"with means2d) {vs_b2:.3e} of the largest gradient")
+        f"against B1 max |B6f - B1| {vs_b1:.3e} (bit for bit), against B2 "
+        f"(scattered, with means2d) {vs_b2:.3e} of the largest gradient")
     return dict(fwd_err=fwd_err, bwd_abs=bwd_abs, pairs_f=pairs_f,
                 pairs_b=pairs_b, vs_b1=vs_b1, vs_b2=vs_b2,
                 aux=(rows, out_p, chk_p, g_out))
@@ -1709,41 +1735,64 @@ def stream_check(stream, mirror, settings, attrs, bins, lists, counts,
 
 def stream_times(stream, mirror, settings, attrs, bins, lists, counts, chk,
                  label):
-    """Kernel and plain times of B6f and B6b on one stream against their
-    bounds, and B1/B2's kernel times on the same copies."""
+    """Times of B6f and B6b on one stream against their bounds and their
+    plain versions, and of B1/B2 on the same copies: each kernel alone
+    (CUPTI through ``torch.profiler``, ``kernel_ms``) and the wrapper's
+    call back to back (CUDA events), each B6 call timed in turns with its
+    B1/B2 counterpart (B6, B1/B2, B1/B2, B6)."""
     rows, out_p, chk_p, g_out = chk["aux"]
     out_1, chk_1 = mirror.mirror_fwd_cuda(settings, attrs, lists, counts)
-    # each B1/B2 time beside its B6 counterpart's on the same copies,
-    # taken in turns (B6, B1/B2, B1/B2, B6)
-    f_ms, b1_ms = paired_ms(
-        lambda: stream.stream_fwd_cuda(settings, rows, *bins),
-        lambda: mirror.mirror_fwd_cuda(settings, attrs, lists, counts), 10)
-    b_ms, b2_ms = paired_ms(
-        lambda: stream.stream_bwd_cuda(settings, rows, *bins, out_p, chk_p,
-                                       g_out),
-        lambda: mirror.mirror_bwd_cuda(settings, attrs, lists, counts,
-                                       out_1, chk_1, g_out), 5)
+
+    def b6f():
+        return stream.stream_fwd_cuda(settings, rows, *bins)
+
+    def b6b():
+        return stream.stream_bwd_cuda(settings, rows, *bins, out_p, chk_p,
+                                      g_out)
+
+    def b1():
+        return mirror.mirror_fwd_cuda(settings, attrs, lists, counts)
+
+    def b2():
+        return mirror.mirror_bwd_cuda(settings, attrs, lists, counts, out_1,
+                                      chk_1, g_out)
+
+    f_ms, b1_ms = paired_ms(b6f, b1, 10)
+    b_ms, b2_ms = paired_ms(b6b, b2, 5)
+    f_alone, _ = kernel_ms(b6f, "stream_fwd_kernel", 10)
+    b1_alone, _ = kernel_ms(b1, "mirror_fwd_kernel", 10)
+    b_alone, _ = kernel_ms(b6b, "stream_bwd_kernel", 5)
+    b2_alone, _ = kernel_ms(b2, "mirror_bwd_kernel", 5)
     f_plain = cuda_ms(lambda: stream.stream_fwd_plain(settings, rows,
                                                       *bins), 1)
     b_plain = cuda_ms(lambda: stream.stream_bwd_plain(
         settings, rows, *bins, out_p, chk_p, g_out), 1)
     fb, bb = stream_bounds(settings, bins, chk["pairs_f"], chk["pairs_b"])
-    log(f"{label}: B6f kernel {f_ms:.4f} ms (B1 {b1_ms:.4f}, B1/B6f "
-        f"{b1_ms / f_ms:.3f}), plain {f_plain:.3f} ms, bound {fb[0]:.4f} ms "
-        f"({fb[1]}; {chk['pairs_f']} pairs); B6b kernel {b_ms:.4f} ms (B2 "
-        f"{b2_ms:.4f}, B2/B6b {b2_ms / b_ms:.3f}), plain {b_plain:.3f} ms, "
-        f"bound {bb[0]:.4f} ms ({bb[1]}; {chk['pairs_b']} pairs)")
-    return (dict(ms=f_ms, plain_ms=f_plain, bound_ms=fb[0], bound_by=fb[1],
-                 b1_ms=b1_ms),
-            dict(ms=b_ms, plain_ms=b_plain, bound_ms=bb[0], bound_by=bb[1],
-                 b2_ms=b2_ms))
+    pad = padding_share(settings, bins)[2]
+    log(f"{label}: B6f alone {f_alone:.4f} ms (B1 {b1_alone:.4f}, B6f/B1 "
+        f"{f_alone / b1_alone:.3f}), call {f_ms:.4f} ms (B1 {b1_ms:.4f}, "
+        f"B1/B6f {b1_ms / f_ms:.3f}), plain {f_plain:.3f} ms, bound "
+        f"{fb[0]:.4f} ms ({fb[1]}; {chk['pairs_f']} pairs); B6b alone "
+        f"{b_alone:.4f} ms (B2 {b2_alone:.4f}, B6b/B2 "
+        f"{b_alone / b2_alone:.3f}), call {b_ms:.4f} ms (B2 {b2_ms:.4f}, "
+        f"B2/B6b {b2_ms / b_ms:.3f}), plain {b_plain:.3f} ms, bound "
+        f"{bb[0]:.4f} ms ({bb[1]}; {chk['pairs_b']} pairs); padding share "
+        f"{pad:.4f}")
+    threads = stream.launch_shape(settings)[0]
+    log(f"{label}: B6f {floors('B6f', chk['pairs_f'], None, threads)}; "
+        f"B6b {floors('B6b', chk['pairs_b'], None, threads)}")
+    return (dict(ms=f_ms, kernel_ms=f_alone, plain_ms=f_plain,
+                 bound_ms=fb[0], bound_by=fb[1], b1_ms=b1_ms),
+            dict(ms=b_ms, kernel_ms=b_alone, plain_ms=b_plain,
+                 bound_ms=bb[0], bound_by=bb[1], b2_ms=b2_ms))
 
 
 def stream_kernel_phase(stream, mirror, fitter):
     """B6f/B6b against their plain versions and against B1/B2: on the
     synthetic 1080p tiles of the mirror-kernel phase (as a stream), and on
-    the fitted state's pair 299-300 with copy_budget_factor 0 and 8.
-    Returns (B6f numbers, B6b numbers) on the factor-8 pair."""
+    the fitted state's pair 299-300 with copy_budget_factor 0 and 8,
+    each timed.  Returns (B6f numbers, B6b numbers) on the factor-8
+    pair (the last)."""
     import dataclasses
 
     from gsvc_tpu_torch.render.splat import (
@@ -1779,9 +1828,8 @@ def stream_kernel_phase(stream, mirror, fitter):
         chk = stream_check(stream, mirror, s, attrs, bins, lists, counts,
                            label)
         errs.append(chk)
-        if factor == 8:
-            b6f, b6b = stream_times(stream, mirror, s, attrs, bins, lists,
-                                    counts, chk, label)
+        b6f, b6b = stream_times(stream, mirror, s, attrs, bins, lists,
+                                counts, chk, label)
     b6f["max_abs_err"] = max(c["fwd_err"] for c in errs)
     b6b["max_abs_err"] = max(c["bwd_abs"] for c in errs)
     return b6f, b6b
@@ -2235,7 +2283,7 @@ def main() -> int:
                                     gaussian_cap=1024, chunk=128,
                                     tiles_per_gaussian=32)
     SASS_PER_PAIR.update(sass_floors(build, sass_kernels(
-        bidir, settings, train_settings)))
+        bidir, stream, settings, train_settings)))
     kernel_err, _ = kernel_phase(bidir, settings)
     mk_fwd, mk_bwd = mirror_kernel_phase(mirror, train_settings)
     t5f, t5b = tile_kernel_phase(tile, train_settings)
@@ -2368,6 +2416,7 @@ def main() -> int:
         "launches": b6f["launches"],
         "max_abs_err": b6f["max_abs_err"],
         "ms": b6f["ms"],
+        "kernel_ms": b6f["kernel_ms"],   # the kernel alone (torch.profiler)
         "plain_ms": b6f["plain_ms"],
         "bound_ms": b6f["bound_ms"],
         "bound_by": b6f["bound_by"],
@@ -2380,6 +2429,7 @@ def main() -> int:
         "launches": b6b["launches"],
         "max_abs_err": b6b["max_abs_err"],
         "ms": b6b["ms"],
+        "kernel_ms": b6b["kernel_ms"],   # the kernel alone (torch.profiler)
         "plain_ms": b6b["plain_ms"],
         "bound_ms": b6b["bound_ms"],
         "bound_by": b6b["bound_by"],

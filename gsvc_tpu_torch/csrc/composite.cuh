@@ -73,27 +73,6 @@ __device__ __forceinline__ void load_plane_chunk(Chunk& s, const Planes& pl, int
   }
 }
 
-// Stages the chunk of `chunk` consecutive slots at `base` of the stream rows [9, n_slots]
-// (the copy stream of the B6 kernels; dead slots are all zero, so their alpha is 0),
-// as load_chunk: tile-local means, conic * -1/2.  Each of the nine rows is one
-// coalesced read.
-__device__ __forceinline__ void load_stream_chunk(Chunk& s, const float* __restrict__ rows,
-                                                  size_t n_slots, size_t base, int chunk,
-                                                  float cx, float cy) {
-  for (int i = threadIdx.x; i < chunk; i += blockDim.x) {
-    const size_t k = base + i;
-    s.mx[i] = rows[k] - cx;
-    s.my[i] = rows[n_slots + k] - cy;
-    s.ha[i] = -0.5f * rows[2 * n_slots + k];
-    s.hb[i] = -0.5f * rows[3 * n_slots + k];
-    s.hc[i] = -0.5f * rows[4 * n_slots + k];
-    s.op[i] = rows[5 * n_slots + k];
-    s.r[i] = rows[6 * n_slots + k];
-    s.g[i] = rows[7 * n_slots + k];
-    s.b[i] = rows[8 * n_slots + k];
-  }
-}
-
 struct Alpha {
   float a;      // clamped alpha, 0 below ALPHA_MIN
   bool act;     // gradient gate: a >= ALPHA_MIN and the unclamped alpha < ALPHA_MAX

@@ -1,6 +1,6 @@
 // Pieces of the mirror kernels B1 (mirror_fwd.cu) and B2 (mirror_bwd.cu) as laid out
-// for Hopper, taken also by B4 (bidir.cu) and B5b (tile_bwd.cu), and written so that
-// B6b can take them too:
+// for Hopper, taken also by B4 (bidir.cu), B5b (tile_bwd.cu) and the stream kernels
+// B6f (stream_fwd.cu) and B6b (stream_bwd.cu):
 //
 //   * Stage: one chunk of a tile's copies in shared memory, 48 B per copy, filled by
 //     cp.async straight from the [m, 9] rows or the nine [rows, cap] planes (no
@@ -83,8 +83,8 @@ __device__ __forceinline__ void finish_rows(Stage& st, const int* ids, int chunk
   }
 }
 
-// Issues the copy of the `chunk` slots at `base` of the nine planes (B5f/B5b's
-// [rows, cap] attribute planes) into the stage.  Slot i belongs to thread
+// Issues the copy of the `chunk` slots at `base` of the nine planes (B5b's [rows, cap]
+// attribute planes, the stream rows [9, n_slots] of B6f/B6b) into the stage.  Slot i belongs to thread
 // i mod blockDim.x, as in stage_rows.  The copies are 4 bytes: the stage interleaves a
 // copy's nine values, so no 16-byte run of a plane lands in one piece.  A chunk's
 // 1,152 copies, spread over the block, cost a thread ~10 instructions against ~10^5
@@ -248,6 +248,19 @@ __device__ __forceinline__ int replay_chunk(const Stage& st, int chunk, bool fli
     if (!__any_sync(0xffffffffu, alive)) return min(j0 + 2, chunk);
   }
   return chunk;
+}
+
+// A kernel whose static shared memory plus `smem` bytes of dynamic shared memory pass
+// the 48 KiB a block gets without opting in (B5b and B6b: the per-warp stage is
+// threads / 32 x 9 x chunk floats, 36,864 B at 256 threads and chunk 128, beside two
+// chunk stages) is opted in to what it needs.
+template <typename Kernel>
+cudaError_t opt_in_smem(Kernel kernel, size_t smem) {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess || fa.sharedSizeBytes + smem <= 48 * 1024) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 }  // namespace gsvc

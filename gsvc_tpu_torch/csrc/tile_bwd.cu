@@ -65,6 +65,7 @@ using gsvc::kMaxThreads;
 using gsvc::kMaxWarps;
 using gsvc::kSums;
 using gsvc::kTEps;
+using gsvc::opt_in_smem;
 using gsvc::replay_chunk;
 using gsvc::stage_planes;
 
@@ -183,18 +184,6 @@ tile_bwd_kernel(Planes pl, const int* __restrict__ counts, const float* __restri
 #pragma unroll
     for (int q = 0; q < kSums; ++q) gr[q * cap + slot] = 0.0f;
   }
-}
-
-// The per-warp stage (threads / 32 x 9 x chunk floats: 36,864 B at 256 threads and
-// chunk 128, as at 16x128 tiles) and the static chunk stages pass the 48 KiB a block
-// gets without opting in.  Opts the kernel in to what it needs.
-template <typename Kernel>
-cudaError_t opt_in_smem(Kernel kernel, size_t smem) {
-  cudaFuncAttributes fa;
-  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
-  if (err != cudaSuccess || fa.sharedSizeBytes + smem <= 48 * 1024) return err;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
 }
 
 }  // namespace

@@ -109,8 +109,8 @@ def _pixels_ok(settings, p_pix, threads):
 
 def tile_shape(settings: RasterSettings, kernels: str):
     """(threads a block, pixels a thread) of a block over a tile's
-    pixels, at most BLOCK_THREADS threads (kernels B5f and B6f/B6b):
-    128 x 1 at 8x16 tiles, 256 x 4 at 8x128, 256 x 8 at 16x128.
+    pixels, at most BLOCK_THREADS threads (kernel B5f): 128 x 1 at 8x16
+    tiles, 256 x 4 at 8x128, 256 x 8 at 16x128.
     ``kernels`` names them in the error."""
     p_pix = settings.tile_h * settings.tile_w
     threads = min(BLOCK_THREADS, p_pix)
@@ -123,7 +123,8 @@ def column_shape(settings: RasterSettings, kernels: str, rows=None,
                  whole_warps: bool = True):
     """(threads a block, pixels a thread) of a block over ``rows`` rows
     of a tile (all of them by default) with one thread a pixel column,
-    so a thread's pixels share x (kernels B1/B2, B4's CTAs, B5b): a
+    so a thread's pixels share x (kernels B1/B2, B4's CTAs, B5b,
+    B6f/B6b): a
     multiple of tile_w, whole warps where the kernel reduces over warps
     (``whole_warps``; B4 does not), at least COLUMN_THREADS, at most
     COLUMN_PPT pixels a thread while BLOCK_THREADS allows; 128 x 8 at

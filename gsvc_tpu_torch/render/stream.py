@@ -23,9 +23,11 @@ mirrored output tile ``u + (ntx-1) - 2(u % ntx)``.  Output rows are in
 view order (f0 fwd, f0 flip, f1 fwd, f1 flip).  Training saves the
 transmittance at the start of every block, per view: ``t_chk [2,
 F*B_MAX, P]`` (blocks after a tile's early stop hold its final T; JAX's
-extra trash row is TPU plumbing).  The backward walks each view's blocks
-in reverse composite order from the final T, and gives every (view,
-slot) its 9 attribute gradients in ``[2, 9, F*S_MAX]``.  The two views'
+extra trash row is TPU plumbing).  The backward gives every (view,
+slot) its 9 attribute gradients in ``[2, 9, F*S_MAX]``; the kernel
+replays each view's blocks forward from the checkpoints with the suffix
+taken from the forward's ``out4`` (B2's replay), the plain version
+walks them in reverse from the final T.  The two views'
 sum, the per-view mean columns of ``m2d`` and the scatter to ``[F, M,
 9]`` rows are one ``index_add_`` after the kernel, dead slots going to
 scratch rows.
@@ -33,8 +35,10 @@ scratch rows.
 The plain versions run ``render/mirror.py``'s ``composite_rows`` /
 ``backward_rows`` over a stream view of the tiles, locating each tile's
 blocks from ``blk_tile`` / ``blk_cc`` where the kernels take the
-exclusive cumsum of ``nblk``: both stop on the same blocks.  Only
-float32 compositing is ported.
+exclusive cumsum of ``nblk``: both stop on the same blocks.  The kernels
+walk a block only up to its live slots (``block_live``), which are a
+prefix of it; the padding after them has opacity 0.  Only float32
+compositing is ported.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ import torch
 
 from gsvc_tpu_torch.build import load
 from gsvc_tpu_torch.render import mirror
-from gsvc_tpu_torch.render.bidir import check_float32, tile_shape
+from gsvc_tpu_torch.render.bidir import check_float32, column_shape
 from gsvc_tpu_torch.render.splat import RasterSettings
 
 N_ATTR = 9
@@ -156,6 +160,20 @@ def block_starts(settings: RasterSettings, nblk, b_max: int):
     return (torch.cumsum(nb, 1, dtype=torch.int32) - nb + frame).reshape(-1)
 
 
+def block_live(settings: RasterSettings, sids):
+    """Live slots of every stream block [F*B_MAX] int32.  A tile's copies
+    fill its span from its first slot on, so a block's live slots are a
+    prefix of it, and the kernels walk a block only that far."""
+    return (sids.reshape(-1, settings.chunk) >= 0).sum(dim=1,
+                                                       dtype=torch.int32)
+
+
+def launch_shape(settings: RasterSettings):
+    """(threads a block, pixels a thread) of kernels B6f/B6b: one thread a
+    pixel column, whole warps (``column_shape``, B1/B2's)."""
+    return column_shape(settings, "B6f/B6b")
+
+
 # ---------------------------------------------------------------------------
 # Kernel launchers (CUDA tensors)
 # ---------------------------------------------------------------------------
@@ -170,7 +188,7 @@ def _fn(lib: str, name: str, n_ptrs: int):
 
 
 def _launch(fn, settings, f_n, b_max, ptrs, device):
-    threads, ppt = tile_shape(settings, "B6f/B6b")
+    threads, ppt = launch_shape(settings)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*ptrs, f_n, settings.n_tiles, settings.n_tiles_x,
@@ -186,6 +204,7 @@ def stream_fwd_cuda(settings: RasterSettings, rows, sids, blk_tile, blk_cc,
     F*B_MAX, P] or None)."""
     f_n, b_max = check_stream(settings, rows, sids, blk_tile, blk_cc, nblk)
     first = block_starts(settings, nblk, b_max)
+    nlive = block_live(settings, sids)
     mirror._require_contiguous(rows=rows, nblk=nblk)
     dev = rows.device
     p_pix = settings.tile_h * settings.tile_w
@@ -193,19 +212,21 @@ def stream_fwd_cuda(settings: RasterSettings, rows, sids, blk_tile, blk_cc,
                        dtype=torch.float32, device=dev)
     t_chk = torch.zeros((2, f_n * b_max, p_pix), dtype=torch.float32,
                         device=dev) if save_tchk else None
-    _launch(_fn("stream_fwd", "stream_forward", 5), settings, f_n, b_max,
+    _launch(_fn("stream_fwd", "stream_forward", 6), settings, f_n, b_max,
             (rows.data_ptr(), nblk.data_ptr(), first.data_ptr(),
-             out4.data_ptr(), t_chk.data_ptr() if save_tchk else None), dev)
+             nlive.data_ptr(), out4.data_ptr(),
+             t_chk.data_ptr() if save_tchk else None), dev)
     return out4, t_chk
 
 
 def stream_bwd_cuda(settings: RasterSettings, rows, sids, blk_tile, blk_cc,
                     nblk, out4, t_chk, g_out):
     """Launch kernel B6b once.  Returns per-slot gradients [2, 9,
-    F*S_MAX] (view 0 forward, view 1 flip; zeros on dead and saturated
-    slots)."""
+    F*S_MAX] (view 0 forward, view 1 flip; zeros on dead, padding and
+    saturated slots, which the kernel does not write)."""
     f_n, b_max = check_stream(settings, rows, sids, blk_tile, blk_cc, nblk)
     first = block_starts(settings, nblk, b_max)
+    nlive = block_live(settings, sids)
     p_pix = settings.tile_h * settings.tile_w
     n_out = 2 * f_n * settings.n_tiles
     for name, t, shape in (("out4", out4, (n_out, 4, p_pix)),
@@ -218,10 +239,11 @@ def stream_bwd_cuda(settings: RasterSettings, rows, sids, blk_tile, blk_cc,
                                t_chk=t_chk, g_out=g_out)
     grads = torch.zeros((2, N_ATTR, rows.shape[1]), dtype=torch.float32,
                         device=rows.device)
-    _launch(_fn("stream_bwd", "stream_backward", 7), settings, f_n, b_max,
+    _launch(_fn("stream_bwd", "stream_backward", 8), settings, f_n, b_max,
             (rows.data_ptr(), nblk.data_ptr(), first.data_ptr(),
-             out4.data_ptr(), t_chk.data_ptr(), g_out.data_ptr(),
-             grads.data_ptr()), rows.device)
+             nlive.data_ptr(), out4.data_ptr(), t_chk.data_ptr(),
+             g_out.data_ptr(), grads.data_ptr()),
+            rows.device)
     return grads
 
 

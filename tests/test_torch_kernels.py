@@ -35,7 +35,11 @@ opting in).
 Stream kernels B6f/B6b (the chunk-aligned copy stream of the same seeded
 lists, chunk 16 and 128, with dead tail blocks): the forward and the
 per-block checkpoints to 2 T_EPS, the gradients to 2e-3 of each
-attribute's largest magnitude, for the reasons given for B1/B2.
+attribute's largest magnitude, for the reasons given for B1/B2; B6f's
+output equals B1's bit for bit on the same copies, and B6b (B2's replay
+on B6f's out4) takes the replay cases of
+tests/test_torch_stream_replay.py and the 16x128 tiles (256 threads,
+past 48 KiB of shared memory).
 
 Hash-grid kernels B3f/B3b (at the fixture's spec, F = 8, 12 3D + 4 2D
 levels, N = 25k and 150k queries): the forward equals the plain version
@@ -61,6 +65,7 @@ from gsvc_tpu_torch.render.splat import (
     T_EPS, RasterSettings, gather_tile_planes_rows,
 )
 from test_torch_mirror_replay import _case as replay_case
+from test_torch_stream_replay import stream_case as stream_replay_case
 from test_torch_tile_replay import _case as tile_replay_case
 
 SMALL = RasterSettings(image_height=40, image_width=48, threshold=0.15,
@@ -465,6 +470,86 @@ def test_stream_kernels_raise_without_their_library(monkeypatch):
     with pytest.raises(ValueError, match="chunk"):
         stream.stream_forward(big_chunk, rows, bins[0].reshape(2, -1),
                               *bins[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["small", "train", "decode"])
+@pytest.mark.parametrize("opacity_hi", [0.1, 0.99])
+def test_stream_forward_equals_b1_bit_for_bit(shape, opacity_hi):
+    """B6f composites the same copies as B1, block for chunk, with the
+    same column alpha, the same running products and the same stops, and
+    ends a block's walk where B1's padding slots (zero alpha) begin: its
+    output, and its checkpoint-free launch, equal B1's bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    settings = {"small": SMALL, "train": TRAIN, "decode": DECODE}[shape]
+    attrs, lists, counts = _frames(settings, 21, opacity_hi)
+    nblk = torch.clamp((counts + settings.chunk - 1) // settings.chunk,
+                       min=1)
+    bins = stream.stream_from_tile_lists(settings, lists, counts,
+                                         int(nblk.sum(dim=1).max()) + 3)
+    rows = stream.stream_rows(attrs, bins[0])
+    out_6, _ = stream.stream_fwd_cuda(settings, rows, *bins)
+    inf_6, _ = stream.stream_fwd_cuda(settings, rows, *bins,
+                                      save_tchk=False)
+    out_1, _ = mirror.mirror_fwd_cuda(settings, attrs, lists, counts)
+    torch.cuda.synchronize()
+    assert (counts == 0).any() and (counts % settings.chunk != 0).any()
+    assert torch.equal(out_6, out_1) and torch.equal(inf_6, out_1)
+
+
+TALL_STREAM = dataclasses.replace(DECODE, image_height=32)
+
+
+@pytest.mark.cuda
+def test_stream_kernels_at_tall_tiles():
+    """B6f/B6b at 16x128 tiles, where B6b runs 256 threads and its shared
+    memory passes 48 KiB: forward and backward against their plain
+    versions (background 0.3), and two backward launches give the same
+    bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    settings = dataclasses.replace(TALL_STREAM, bg=0.3)
+    assert stream.launch_shape(settings) == (256, 8)
+    attrs, bins = _stream(settings, 16, 0.9)
+    rows = stream.stream_rows(attrs, bins[0])
+    out_k, chk_k = stream.stream_fwd_cuda(settings, rows, *bins)
+    out_p, chk_p, _ = stream.stream_fwd_plain(settings, rows, *bins)
+    g = torch.randn(out_p.shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(17))
+    gr_k = stream.stream_bwd_cuda(settings, rows, *bins, out_p, chk_p, g)
+    gr_k2 = stream.stream_bwd_cuda(settings, rows, *bins, out_p, chk_p, g)
+    gr_p, _ = stream.stream_bwd_plain(settings, rows, *bins, out_p, chk_p,
+                                      g)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out_k, out_p, atol=2 * T_EPS, rtol=0)
+    torch.testing.assert_close(chk_k, chk_p, atol=2 * T_EPS, rtol=0)
+    assert torch.isfinite(gr_k).all() and torch.equal(gr_k, gr_k2)
+    for v in range(2):
+        _check_bwd(gr_k[v].T[:, :, None], gr_p[v].T[:, :, None])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["saturated", "dead_warp", "wide"])
+def test_stream_backward_replay_cases(kind):
+    """B6b on the replay cases of tests/test_torch_stream_replay.py (a
+    column whose T underflows to 0 mid-block, a warp dead inside the
+    first block, 8x128 tiles; background 0.3) against its plain version,
+    on B6f's own outputs as the autograd function runs it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    settings, rows, bins = stream_replay_case(kind)
+    rows, bins = rows.cuda(), tuple(b.cuda() for b in bins)
+    out_k, chk_k = stream.stream_fwd_cuda(settings, rows, *bins)
+    g = torch.randn(out_k.shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(18))
+    gr_k = stream.stream_bwd_cuda(settings, rows, *bins, out_k, chk_k, g)
+    gr_p, _ = stream.stream_bwd_plain(settings, rows, *bins, out_k, chk_k,
+                                      g)
+    torch.cuda.synchronize()
+    assert torch.isfinite(gr_k).all()
+    for v in range(2):
+        _check_bwd(gr_k[v].T[:, :, None], gr_p[v].T[:, :, None])
 
 
 SMALL_NARROW = RasterSettings(image_height=40, image_width=40, threshold=0.15,

@@ -54,7 +54,7 @@ from gsvc_tpu.render.splat import (
 )
 from gsvc_tpu_torch.models.gaussians import GenerateMode
 from gsvc_tpu_torch.render import mirror, stream
-from gsvc_tpu_torch.render.bidir import tile_shape
+from gsvc_tpu_torch.render.bidir import column_shape
 from gsvc_tpu_torch.render.batched import (
     can_mirror, render_frame_views, render_pair,
 )
@@ -481,18 +481,22 @@ def test_evaluate_video_renders_through_the_stream(monkeypatch):
 
 
 def test_stream_kernel_shape():
-    """B6f/B6b keep their block (``tile_shape``, B5f's): the tile's
-    pixels over at most 256 threads (128 x 1 at 8x16, 256 x 4 at 8x128,
-    256 x 8 at 16x128); a chunk past the shared-memory stage is
-    refused."""
+    """B6f/B6b run one thread per tile column, whole warps
+    (``column_shape``, B1/B2's): 128 x 1 at 8x16, 128 x 8 at 8x128, 256 x
+    8 at 16x128; a chunk past the shared-memory stage and a tile width
+    that does not divide the block are refused."""
     base = RasterSettings(image_height=40, image_width=48, threshold=0.15,
                           tile_h=8, tile_w=16, gaussian_cap=64, chunk=16,
                           tiles_per_gaussian=32)
-    assert tile_shape(base, "B6f/B6b") == (128, 1)
+    assert stream.launch_shape(base) == column_shape(base, "B6f/B6b") \
+        == (128, 1)
     train = dataclasses.replace(base, tile_w=128, image_width=256)
-    assert tile_shape(train, "B6f/B6b") == (256, 4)
+    assert stream.launch_shape(train) == (128, 8)
     decode = dataclasses.replace(train, tile_h=16)
-    assert tile_shape(decode, "B6f/B6b") == (256, 8)
+    assert stream.launch_shape(decode) == (256, 8)
     with pytest.raises(ValueError, match="B6f/B6b"):
-        tile_shape(dataclasses.replace(base, chunk=256, gaussian_cap=512),
-                   "B6f/B6b")
+        stream.launch_shape(dataclasses.replace(base, chunk=256,
+                                                gaussian_cap=512))
+    with pytest.raises(ValueError, match="B6f/B6b"):
+        stream.launch_shape(dataclasses.replace(base, tile_w=48,
+                                                image_width=48))
