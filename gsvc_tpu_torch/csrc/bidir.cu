@@ -38,7 +38,7 @@
 //     resident until no peer can read its flags.
 //   * A thread owns one pixel column (threads a multiple of tile_w), so a copy's x
 //     terms of the alpha are formed once per thread (replay.cuh column_at/alpha_col:
-//     the same rounded operations as alpha_at).  Its front transmittance, forward
+//     rounded in the plain version's order).  Its front transmittance, forward
 //     colour sum and Horner back-suffix sum stay in registers.
 //   * Each CTA stages its chunks itself with cp.async (replay.cuh stage_ids /
 //     stage_rows / finish_rows), double-buffered: chunk p + 1 of the front loop and

@@ -25,7 +25,7 @@
 // 8x128 tiles) and keeps the column's transmittance and colour sums in registers.  The
 // column shares x, so a copy's x terms of the alpha (x - mean x and its two conic
 // products) are formed once per thread instead of once per pixel (replay.cuh
-// alpha_col: the same rounded operations as alpha_at).  The chunks are pipelined: while
+// alpha_col: rounded in the plain version's order).  The chunks are pipelined: while
 // the block composites chunk p, cp.async gathers chunk p + 1's rows from the [M, 9]
 // rows into the other of two shared-memory stages and chunk p + 2's ids into the other
 // of two id buffers; the issuing thread makes its own rows tile-local after they land,

@@ -1,6 +1,7 @@
 // Pieces of the mirror kernels B1 (mirror_fwd.cu) and B2 (mirror_bwd.cu) as laid out
-// for Hopper, taken also by B4 (bidir.cu), B5b (tile_bwd.cu) and the stream kernels
-// B6f (stream_fwd.cu) and B6b (stream_bwd.cu):
+// for Hopper, taken also by B4 (bidir.cu), the single-view kernels B5f (tile_fwd.cu)
+// and B5b (tile_bwd.cu) and the stream kernels B6f (stream_fwd.cu) and B6b
+// (stream_bwd.cu):
 //
 //   * Stage: one chunk of a tile's copies in shared memory, 48 B per copy, filled by
 //     cp.async straight from the [m, 9] rows or the nine [rows, cap] planes (no
@@ -13,8 +14,8 @@
 //     composite order with one alpha evaluation per (copy, pixel), and its per-copy
 //     warp reduction.
 //
-// Every product and sum before the alpha is rounded on its own, in alpha_at's order
-// (composite.cuh), so the alphas equal alpha_at's bit for bit.
+// Every product and sum before the alpha is rounded on its own, in the plain PyTorch
+// versions' order (alpha_col), so every kernel evaluates the same alphas bit for bit.
 #pragma once
 
 #include "composite.cuh"
@@ -66,7 +67,7 @@ __device__ __forceinline__ void stage_rows(Stage& st, const int* ids,
 }
 
 // After cp_async_wait_all: makes the calling thread's staged rows tile-local (cx, cy the
-// tile centre) with the conic scaled by -1/2, as load_chunk stages them; padding rows
+// tile centre) with the conic scaled by -1/2; padding rows
 // stay all zero (opacity 0).
 __device__ __forceinline__ void finish_rows(Stage& st, const int* ids, int chunk, int m,
                                            float cx, float cy) {
@@ -83,12 +84,12 @@ __device__ __forceinline__ void finish_rows(Stage& st, const int* ids, int chunk
   }
 }
 
-// Issues the copy of the `chunk` slots at `base` of the nine planes (B5b's [rows, cap]
-// attribute planes, the stream rows [9, n_slots] of B6f/B6b) into the stage.  Slot i belongs to thread
-// i mod blockDim.x, as in stage_rows.  The copies are 4 bytes: the stage interleaves a
-// copy's nine values, so no 16-byte run of a plane lands in one piece.  A chunk's
-// 1,152 copies, spread over the block, cost a thread ~10 instructions against ~10^5
-// of replay.
+// Issues the copy of the `chunk` slots at `base` of the nine planes (B5f/B5b's [rows,
+// cap] attribute planes, the stream rows [9, n_slots] of B6f/B6b) into the stage.
+// Slot i belongs to thread i mod blockDim.x, as in stage_rows.  The copies are 4
+// bytes: the stage interleaves a copy's nine values, so no 16-byte run of a plane
+// lands in one piece.  A chunk's 1,152 copies, spread over the block, cost a thread
+// ~10 instructions against ~10^5 of replay.
 __device__ __forceinline__ void stage_planes(Stage& st, const Planes& pl, size_t base,
                                             int chunk) {
   for (int i = threadIdx.x; i < chunk; i += blockDim.x) {
@@ -99,8 +100,8 @@ __device__ __forceinline__ void stage_planes(Stage& st, const Planes& pl, size_t
 }
 
 // After cp_async_wait_all: makes the calling thread's staged plane slots tile-local
-// with the conic scaled by -1/2, as load_plane_chunk stages them (every slot: a
-// padding slot carries opacity 0).
+// with the conic scaled by -1/2, as finish_rows (every slot: a padding slot carries
+// opacity 0).
 __device__ __forceinline__ void finish_planes(Stage& st, int chunk, float cx, float cy) {
   for (int i = threadIdx.x; i < chunk; i += blockDim.x) {
     float4& p = st.v[i][0];
@@ -137,8 +138,10 @@ __device__ __forceinline__ Column column_at(const Stage& st, int i, float x) {
   return c;
 }
 
-// alpha_at for the column's copy at tile-local row y: the same rounded operations in
-// the same order, with the x terms taken from the column.
+// Alpha of the column's copy at tile-local row y (pallas_splat.py _chunk_alpha), the
+// x terms taken from the column.  Every product and sum is rounded on its own
+// (__fmul_rn / __fadd_rn are never contracted into FMAs), in the plain PyTorch
+// versions' order: ALPHA_MIN is a 1/255 step that a one-ulp difference could cross.
 __device__ __forceinline__ Alpha alpha_col(const Column& c, float y) {
   Alpha r;
   r.d0 = c.d0;

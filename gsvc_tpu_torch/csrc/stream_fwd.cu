@@ -24,8 +24,8 @@
 // One block per (data tile, view); each thread owns one pixel column of the tile
 // (threads a multiple of tile_w; 128 threads x 8 pixels at 8x128 tiles) and keeps the
 // column's transmittance and colour sums in registers, so a copy's x terms of the alpha
-// are formed once per thread (replay.cuh column_at / alpha_col: the same rounded
-// operations as alpha_at, so the output equals B1's bit for bit on the same copies).
+// are formed once per thread (replay.cuh column_at / alpha_col: B1's rounded
+// operations, so the output equals B1's bit for bit on the same copies).
 // The TPU kernel's grid of (view, stream block) with index maps and a trash row becomes
 // a walk over the tile's own blocks, whose first block is the exclusive cumsum of nblk
 // (frame offsets included, computed by the wrapper), so dead blocks are never visited.

@@ -12,40 +12,57 @@
 // The Python wrapper is gsvc_tpu_torch/render/tile.py, whose plain PyTorch version
 // computes the same function.
 //
-// What bounds it on an H100: arithmetic.  Each evaluated (copy, pixel) pair costs an
-// alpha (quadratic form, expf) and one compositing step, ~25 FP32 operations, while a
-// row reads 36 B per copy once (shared by its P pixels) and writes 4 (+ n_chunks + 1)
-// floats per pixel.
+// What bounds it on an H100: issued FP32 instructions, as kernel B1.  Each evaluated
+// (copy, pixel) pair costs an alpha (quadratic form, expf; every product and sum of the
+// alpha rounded on its own, so no FMA) and one compositing step, ~25 FP32 operations,
+// while a row reads 36 B per copy once (shared by its P pixels) and writes 4
+// (+ n_chunks + 1) floats per pixel.
 //
-// What the design does about it: one block per plane row; each thread owns PPT pixels
-// and keeps their transmittance and colour sums in registers.  Each chunk of <= 128
-// copies is staged in shared memory once (tile-local means, conic pre-scaled by -1/2)
-// and read as broadcasts.  The TPU kernel's log-space triangular-matmul cumsum (a
-// Mosaic workaround) becomes a per-pixel running product inside the chunk (t_before =
-// T_carry * E, E *= 1 - alpha); the carry multiplies by the unmasked chunk product, and
-// a copy contributes only where t_before >= T_EPS, as on the TPU.  The stop is per row
-// and chunk-granular (__syncthreads_or), as the TPU kernel's while-loop.  The alpha is
-// computed without FMA contraction, in the plain version's order (see alpha_at).  Each
-// block writes only its own rows of out and t_chk.
-#include "composite.cuh"
+// What the design does about it: kernel B1's (mirror_fwd.cu) over the single view's
+// planes, as kernel B6f (stream_fwd.cu) over the stream's.  One block per plane row;
+// each thread owns one pixel column of the tile (threads a multiple of tile_w; 128
+// threads x 8 pixels at 8x128 tiles) and keeps the column's transmittance and colour
+// sums in registers, so a copy's x terms of the alpha are formed once per thread
+// (replay.cuh column_at / alpha_col: the same rounded operations in the plain
+// version's order, so the output equals B1's forward view bit for bit on the same
+// copies).  The chunks are pipelined: while the block composites chunk c, cp.async
+// copies chunk c + 1's nine plane runs (row * cap + (c + 1) * chunk) into the other of
+// two shared-memory stages (replay.cuh stage_planes); each thread makes its own slots
+// tile-local after they land, and the one barrier per chunk (the __syncthreads_or of
+// the early stop) publishes them.  A chunk's walk ends at the row's count (clamped to
+// cap where the list overflowed): the padding slots of a partly filled last chunk
+// (opacity 0, zero alpha) are neither staged nor walked, and no stale slot of the other
+// stage is read.  The blocks take the rows heaviest first (order[], the wrapper's sort
+// of the counts), so the longest rows start in the first wave.  The TPU kernel's
+// log-space triangular-matmul cumsum (a Mosaic workaround) becomes a per-pixel running
+// product inside the chunk (t_before = T_carry * E, E *= 1 - alpha); the carry
+// multiplies by the unmasked chunk product, and a copy contributes only where
+// t_before >= T_EPS, as on the TPU.  Each block writes only its own rows of out and
+// t_chk.
+#include "replay.cuh"
 
 namespace {
 
-using gsvc::Chunk;
+using gsvc::Column;
 using gsvc::Planes;
-using gsvc::alpha_at;
+using gsvc::Stage;
+using gsvc::alpha_col;
+using gsvc::column_at;
+using gsvc::cp_async_commit;
+using gsvc::cp_async_wait_all;
+using gsvc::finish_planes;
 using gsvc::kMaxChunk;
 using gsvc::kMaxThreads;
 using gsvc::kTEps;
-using gsvc::load_plane_chunk;
+using gsvc::stage_planes;
 
 template <int PPT>
 __global__ void __launch_bounds__(kMaxThreads)
-tile_fwd_kernel(Planes pl, const int* __restrict__ counts, float* __restrict__ out,
-                float* __restrict__ tchk, int n_tiles, int n_tiles_x, int tile_w, int cap,
-                int chunk, float bg) {
-  __shared__ Chunk s;
-  const int row = blockIdx.x;
+tile_fwd_kernel(Planes pl, const int* __restrict__ counts, const int* __restrict__ order,
+                float* __restrict__ out, float* __restrict__ tchk, int n_tiles,
+                int n_tiles_x, int tile_w, int cap, int chunk, float bg) {
+  __shared__ Stage st[2];
+  const int row = order[blockIdx.x];
   const int u = row % n_tiles;
   const int tx = u % n_tiles_x;
   const int p_pix = blockDim.x * PPT;
@@ -53,17 +70,29 @@ tile_fwd_kernel(Planes pl, const int* __restrict__ counts, float* __restrict__ o
   const float cx = static_cast<float>(tx * tile_w) + (tile_w - 1) / 2.0f;
   const float cy = static_cast<float>((u / n_tiles_x) * tile_h) + (tile_h - 1) / 2.0f;
   const int n_chunks = cap / chunk;
-  const int n_used = min((counts[row] + chunk - 1) / chunk, n_chunks);
+  const int count = min(counts[row], cap);
+  const int n_used = (count + chunk - 1) / chunk;
+  const size_t base = static_cast<size_t>(row) * cap;
   float* tc = tchk ? tchk + static_cast<size_t>(row) * (n_chunks + 1) * p_pix : nullptr;
 
-  float xs[PPT], ys[PPT], t[PPT], acc[PPT][3];
+  // pixel k of this thread: lin = threadIdx.x + k * blockDim.x, all in one column
+  const float x = static_cast<float>(threadIdx.x % tile_w) - (tile_w - 1) / 2.0f;
+  float ys[PPT], t[PPT], acc[PPT][3];
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
     const int lin = threadIdx.x + k * blockDim.x;
-    xs[k] = static_cast<float>(lin % tile_w) - (tile_w - 1) / 2.0f;
     ys[k] = static_cast<float>(lin / tile_w) - (tile_h - 1) / 2.0f;
     t[k] = 1.0f;
     acc[k][0] = acc[k][1] = acc[k][2] = 0.0f;
+  }
+
+  // copies in chunk c: the slots past the count are padding
+  auto real = [&](int c) { return min(chunk, count - c * chunk); };
+  if (n_used > 0) {
+    stage_planes(st[0], pl, base, real(0));
+    cp_async_commit();
+    cp_async_wait_all();
+    finish_planes(st[0], real(0), cx, cy);
   }
 
   int c = 0;
@@ -71,33 +100,41 @@ tile_fwd_kernel(Planes pl, const int* __restrict__ counts, float* __restrict__ o
     int live = 0;
 #pragma unroll
     for (int k = 0; k < PPT; ++k) live |= t[k] >= kTEps;
-    if (!__syncthreads_or(live)) break;  // also: stage reads of chunk c-1 are done
+    // publishes stage c; the reads of stage c - 1 are done
+    if (!__syncthreads_or(live)) break;
     if (tc) {
 #pragma unroll
       for (int k = 0; k < PPT; ++k) tc[c * p_pix + threadIdx.x + k * blockDim.x] = t[k];
     }
-    load_plane_chunk(s, pl, row, c, chunk, cap, cx, cy);
-    __syncthreads();
+    const int s = c & 1;
+    if (c + 1 < n_used)
+      stage_planes(st[s ^ 1], pl, base + static_cast<size_t>(c + 1) * chunk, real(c + 1));
+    cp_async_commit();
+
+    const Stage& S = st[s];
+    const int n = real(c);
     float e[PPT];
 #pragma unroll
     for (int k = 0; k < PPT; ++k) e[k] = 1.0f;
-    for (int i = 0; i < chunk; ++i) {
-      const float cr = s.r[i], cg = s.g[i], cb = s.b[i];
+    for (int j = 0; j < n; ++j) {
+      const Column cl = column_at(S, j, x);
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
-        const float a = alpha_at(s, i, xs[k], ys[k]).a;
+        const float a = alpha_col(cl, ys[k]).a;
         const float tb = t[k] * e[k];
         if (tb >= kTEps) {
           const float w = a * tb;
-          acc[k][0] += w * cr;
-          acc[k][1] += w * cg;
-          acc[k][2] += w * cb;
+          acc[k][0] += w * cl.r;
+          acc[k][1] += w * cl.g;
+          acc[k][2] += w * cl.b;
         }
         e[k] *= 1.0f - a;
       }
     }
 #pragma unroll
     for (int k = 0; k < PPT; ++k) t[k] *= e[k];
+    cp_async_wait_all();
+    if (c + 1 < n_used) finish_planes(st[s ^ 1], real(c + 1), cx, cy);
   }
 
 #pragma unroll
@@ -114,26 +151,29 @@ tile_fwd_kernel(Planes pl, const int* __restrict__ counts, float* __restrict__ o
 
 }  // namespace
 
-// Launches one block per plane row on `stream`: n_rows blocks.  planes is a host array
-// of nine device pointers to [n_rows, cap] f32 planes; counts [n_rows] i32, out
-// [n_rows, 4, P] f32 and tchk [n_rows, cap / chunk + 1, P] f32 (or null: no
-// checkpoints) are device pointers, P = threads * ppt = tile_h * tile_w.
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int tile_forward(const float* const* planes, const int* counts, float* out,
-                            float* tchk, int n_rows, int n_tiles, int n_tiles_x,
-                            int tile_w, int cap, int chunk, int threads, int ppt,
-                            float bg, void* stream) {
+// Launches one block per plane row on `stream`: n_rows blocks of `threads` threads (a
+// multiple of tile_w) with `ppt` pixels each, block b compositing row order[b].  planes
+// is a host array of nine device pointers to [n_rows, cap] f32 planes; counts [n_rows]
+// i32, order [n_rows] i32 (a permutation of the rows), out [n_rows, 4, P] f32 and tchk
+// [n_rows, cap / chunk + 1, P] f32 (or null: no checkpoints) are device pointers,
+// P = threads * ppt = tile_h * tile_w.  Returns cudaGetLastError() after the launch
+// (0 on success).
+extern "C" int tile_forward(const float* const* planes, const int* counts,
+                            const int* order, float* out, float* tchk, int n_rows,
+                            int n_tiles, int n_tiles_x, int tile_w, int cap, int chunk,
+                            int threads, int ppt, float bg, void* stream) {
   if (chunk <= 0 || chunk > kMaxChunk || cap % chunk != 0 || threads <= 0 ||
-      threads > kMaxThreads || tile_w <= 0 || (threads * ppt) % tile_w != 0 ||
-      n_tiles <= 0)
+      threads > kMaxThreads || tile_w <= 0 || threads % tile_w != 0 || n_tiles <= 0 ||
+      order == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows == 0) return 0;
   Planes pl;
   for (int i = 0; i < 9; ++i) pl.p[i] = planes[i];
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define GSVC_TILE_FWD_LAUNCH(P)                                                     \
-  tile_fwd_kernel<P><<<n_rows, threads, 0, st>>>(pl, counts, out, tchk, n_tiles,   \
-                                                 n_tiles_x, tile_w, cap, chunk, bg)
+  tile_fwd_kernel<P><<<n_rows, threads, 0, st>>>(pl, counts, order, out, tchk,     \
+                                                 n_tiles, n_tiles_x, tile_w, cap,  \
+                                                 chunk, bg)
   switch (ppt) {
     case 1: GSVC_TILE_FWD_LAUNCH(1); break;
     case 2: GSVC_TILE_FWD_LAUNCH(2); break;

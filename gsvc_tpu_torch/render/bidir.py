@@ -43,7 +43,7 @@ from gsvc_tpu_torch.render.splat import (
 MAX_CHUNK = 128
 MAX_PIXELS_PER_THREAD = 16
 BLOCK_THREADS = 256
-# blocks of one thread a pixel column (B1/B2, B4's CTAs, B5b): at least
+# blocks of one thread a pixel column (every compositing kernel): at least
 # COLUMN_THREADS threads, more where the tile is wider or holds more than
 # COLUMN_PPT pixels a thread (B2 spills registers at 16)
 COLUMN_THREADS = 128
@@ -107,26 +107,13 @@ def _pixels_ok(settings, p_pix, threads):
             and ppt <= MAX_PIXELS_PER_THREAD and not ppt & (ppt - 1))
 
 
-def tile_shape(settings: RasterSettings, kernels: str):
-    """(threads a block, pixels a thread) of a block over a tile's
-    pixels, at most BLOCK_THREADS threads (kernel B5f): 128 x 1 at 8x16
-    tiles, 256 x 4 at 8x128, 256 x 8 at 16x128.
-    ``kernels`` names them in the error."""
-    p_pix = settings.tile_h * settings.tile_w
-    threads = min(BLOCK_THREADS, p_pix)
-    if not _pixels_ok(settings, p_pix, threads):
-        raise _shape_error(kernels, settings, "tiles of whole blocks")
-    return threads, p_pix // threads
-
-
 def column_shape(settings: RasterSettings, kernels: str, rows=None,
                  whole_warps: bool = True):
     """(threads a block, pixels a thread) of a block over ``rows`` rows
     of a tile (all of them by default) with one thread a pixel column,
-    so a thread's pixels share x (kernels B1/B2, B4's CTAs, B5b,
-    B6f/B6b): a
-    multiple of tile_w, whole warps where the kernel reduces over warps
-    (``whole_warps``; B4 does not), at least COLUMN_THREADS, at most
+    so a thread's pixels share x (kernels B1/B2, B4's CTAs, B5f/B5b,
+    B6f/B6b): a multiple of tile_w, whole warps where the kernel reduces
+    over warps (``whole_warps``; B4 does not), at least COLUMN_THREADS, at most
     COLUMN_PPT pixels a thread while BLOCK_THREADS allows; 128 x 8 at
     8x128 tiles, 256 x 8 at 16x128.  ``kernels`` names them in the
     error."""

@@ -38,9 +38,7 @@ import torch
 
 from gsvc_tpu_torch.build import load
 from gsvc_tpu_torch.render import mirror
-from gsvc_tpu_torch.render.bidir import (
-    check_float32, column_shape, tile_shape,
-)
+from gsvc_tpu_torch.render.bidir import check_float32, column_shape
 from gsvc_tpu_torch.render.splat import RasterSettings
 
 def check_planes(settings: RasterSettings, planes, counts) -> int:
@@ -91,10 +89,15 @@ def _plane_ptrs(planes):
     return (ctypes.c_void_p * 9)(*(p.data_ptr() for p in planes))
 
 
-def _launch(fn, settings, n_rows, ptrs, device, backward):
-    # B5b runs one thread a column (the column form of its moments)
-    threads, ppt = (column_shape(settings, "B5b") if backward
-                    else tile_shape(settings, "B5f"))
+def launch_shape(settings: RasterSettings):
+    """(threads a block, pixels a thread) of B5f and B5b: one thread a
+    pixel column, whole warps (``column_shape``, B1/B2's): 128 x 8 at
+    8x128 tiles, 256 x 8 at 16x128."""
+    return column_shape(settings, "B5f/B5b")
+
+
+def _launch(fn, settings, n_rows, ptrs, device):
+    threads, ppt = launch_shape(settings)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*ptrs, n_rows, settings.n_tiles, settings.n_tiles_x,
@@ -106,8 +109,9 @@ def _launch(fn, settings, n_rows, ptrs, device, backward):
 
 def tile_fwd_cuda(settings: RasterSettings, planes, counts,
                   save_tchk: bool = True):
-    """Launch kernel B5f once.  Returns (out4 [V*T, 4, P], t_chk
-    [V*T, n_chunks + 1, P] or None)."""
+    """Launch kernel B5f once, its blocks taking the rows in falling
+    order of their copies (one sort of the counts on the card).  Returns
+    (out4 [V*T, 4, P], t_chk [V*T, n_chunks + 1, P] or None)."""
     n_rows = check_planes(settings, planes, counts)
     ptrs = _plane_ptrs(planes)
     if not counts.is_cuda or not counts.is_contiguous():
@@ -118,9 +122,11 @@ def tile_fwd_cuda(settings: RasterSettings, planes, counts,
     out4 = torch.empty((n_rows, 4, p_pix), dtype=torch.float32, device=dev)
     t_chk = torch.empty((n_rows, n_chunks + 1, p_pix), dtype=torch.float32,
                         device=dev) if save_tchk else None
-    _launch(_fn("tile_fwd", "tile_forward", 3), settings, n_rows,
-            (ptrs, counts.data_ptr(), out4.data_ptr(),
-             t_chk.data_ptr() if save_tchk else None), dev, False)
+    order = torch.argsort(counts, descending=True,
+                          stable=True).to(torch.int32)
+    _launch(_fn("tile_fwd", "tile_forward", 4), settings, n_rows,
+            (ptrs, counts.data_ptr(), order.data_ptr(), out4.data_ptr(),
+             t_chk.data_ptr() if save_tchk else None), dev)
     return out4, t_chk
 
 
@@ -159,7 +165,7 @@ def tile_bwd_cuda(settings: RasterSettings, planes, counts, out4, t_chk,
                         dtype=torch.float32, device=dev)
     _launch(_fn("tile_bwd", "tile_backward", 5), settings, n_rows,
             (ptrs, counts.data_ptr(), out4.data_ptr(), t_chk.data_ptr(),
-             g_out.data_ptr(), grads.data_ptr()), dev, True)
+             g_out.data_ptr(), grads.data_ptr()), dev)
     return grads
 
 

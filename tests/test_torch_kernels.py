@@ -26,7 +26,9 @@ card refuses raises.
 
 Single-view kernels B5f/B5b (widths that are not a multiple of tile_w):
 the forward and checkpoints to 2 T_EPS, the gradients to 2e-3 of each
-attribute's largest magnitude, for the reasons given for B1/B2; B5b
+attribute's largest magnitude, for the reasons given for B1/B2; at an
+aligned width B5f's output equals B1's forward view bit for bit on the
+same copies, and a count above cap composites cap copies; B5b
 (B2's replay on B5f's out4) adds no float atomics either, and takes the
 replay cases of tests/test_torch_tile_replay.py and the 16x128 tiles
 (256 threads, past the 48 KiB of shared memory a block gets without
@@ -665,6 +667,65 @@ def test_tile_kernels_at_tall_tiles():
     torch.testing.assert_close(chk_k, chk_p, atol=2 * T_EPS, rtol=0)
     assert torch.isfinite(gr_k).all() and torch.equal(gr_k, gr_k2)
     _check_bwd(gr_k, gr_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["small", "train", "decode"])
+@pytest.mark.parametrize("opacity_hi", [0.1, 0.99])
+def test_tile_forward_equals_b1_bit_for_bit(shape, opacity_hi):
+    """B5f composites a view's planes as B1 composites its forward view
+    from the lists: the same column alpha, running products and stops,
+    its walk ending where B1's padding slots (zero alpha) begin.  At a
+    tile-aligned width its out4 and t_chk, and its checkpoint-free
+    launch, equal B1's forward-view rows bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    settings = {"small": SMALL, "train": TRAIN, "decode": DECODE}[shape]
+    attrs, lists, counts = _frames(settings, 22, opacity_hi)
+    views = [gather_tile_planes_rows(attrs[f], lists[f])
+             for f in range(attrs.shape[0])]
+    planes = tuple(torch.cat([p[i] for p in views]).contiguous()
+                   for i in range(9))
+    cnt = counts.reshape(-1).contiguous()
+    out_5, chk_5 = tile.tile_fwd_cuda(settings, planes, cnt)
+    inf_5, _ = tile.tile_fwd_cuda(settings, planes, cnt, save_tchk=False)
+    out_1, chk_1 = mirror.mirror_fwd_cuda(settings, attrs, lists, counts)
+    torch.cuda.synchronize()
+    t_n = settings.n_tiles
+    fwd = (torch.arange(2 * attrs.shape[0] * t_n, device="cuda")
+           // t_n) % 2 == 0
+    assert (cnt == 0).any() and (cnt % settings.chunk != 0).any()
+    assert torch.equal(out_5, out_1[fwd]) and torch.equal(chk_5, chk_1[fwd])
+    assert torch.equal(inf_5, out_1[fwd])
+
+
+@pytest.mark.cuda
+def test_tile_forward_clamps_overflowed_counts():
+    """Rows whose count passed cap (an overflowed list) composite their
+    cap copies: at a width that is not a multiple of tile_w (the last
+    tile column reaches 24 px past the image), B5f on such counts equals
+    B5f on the counts clamped to cap bit for bit, and the plain version
+    to 2 T_EPS."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    settings = TRAIN_NARROW
+    assert settings.n_tiles_x * settings.tile_w > settings.image_width
+    planes, counts = _planes(settings, 23, 0.5)
+    cap = settings.gaussian_cap
+    over = counts.clone()
+    over[counts == cap] = cap + 7
+    over[1] = 5 * cap
+    assert (over > cap).sum() >= 2
+    clamped = over.clamp(max=cap)
+    out_o, chk_o = tile.tile_fwd_cuda(settings, planes, over)
+    inf_o, _ = tile.tile_fwd_cuda(settings, planes, over, save_tchk=False)
+    out_c, chk_c = tile.tile_fwd_cuda(settings, planes, clamped)
+    out_p, chk_p, _ = tile.tile_fwd_plain(settings, planes, over)
+    torch.cuda.synchronize()
+    assert torch.equal(out_o, out_c) and torch.equal(chk_o, chk_c)
+    assert torch.equal(inf_o, out_c)
+    torch.testing.assert_close(out_o, out_p, atol=2 * T_EPS, rtol=0)
+    torch.testing.assert_close(chk_o, chk_p, atol=2 * T_EPS, rtol=0)
 
 
 @pytest.mark.cuda

@@ -41,7 +41,7 @@ import pytest
 import torch
 
 from gsvc_tpu_torch.render import tile
-from gsvc_tpu_torch.render.bidir import column_shape, tile_shape
+from gsvc_tpu_torch.render.bidir import column_shape
 from gsvc_tpu_torch.render.splat import (
     T_EPS, RasterSettings, gather_tile_planes_rows,
 )
@@ -269,21 +269,21 @@ def test_unreached_slots_are_zero():
 
 
 def test_tile_kernel_shape():
-    """B5f keeps its block (``tile_shape``: the tile's pixels over at
-    most 256 threads); B5b runs one thread per tile column, whole warps
-    (``column_shape``, B1/B2's): 128 x 8 at the training tiles, 128 x 1
-    at 8x16, 256 x 8 at 16x128; a tile width that does not divide the
-    block is refused."""
-    assert tile_shape(WIDE, "B5f") == (256, 4)
-    assert tile_shape(SMALL, "B5f") == (128, 1)
-    assert column_shape(WIDE, "B5b") == (128, 8)
-    assert column_shape(SMALL, "B5b") == (128, 1)
+    """B5f and B5b run one thread per tile column, whole warps
+    (``tile.launch_shape``: ``column_shape``, B1/B2's): 128 x 8 at the
+    training tiles, 128 x 1 at 8x16, 256 x 8 at 16x128; a tile width
+    that does not divide the block is refused."""
+    assert tile.launch_shape(WIDE) == column_shape(WIDE, "B5b") == (128, 8)
+    assert tile.launch_shape(SMALL) == column_shape(SMALL, "B5b") \
+        == (128, 1)
     taller = dataclasses.replace(WIDE, tile_h=16, image_height=32)
-    assert column_shape(taller, "B5b") == (256, 8)
-    assert tile_shape(taller, "B5f") == (256, 8)
+    assert tile.launch_shape(taller) == column_shape(taller, "B5b") \
+        == (256, 8)
     odd = dataclasses.replace(SMALL, tile_w=48, image_width=48)
     with pytest.raises(ValueError, match="B5b"):
         column_shape(odd, "B5b")
+    with pytest.raises(ValueError, match="B5f"):
+        tile.launch_shape(odd)
 
 
 @pytest.mark.parametrize("bad", ["shape", "dtype", "device"])
