@@ -81,9 +81,8 @@
    must equal B1's forward-view rows on the same four frames bit for
    bit.  B5f and B5b are timed alone too, with their work per block
    (chunks walked per row, the heaviest row, the padding share of the
-   walked chunks) and both issue floors; B5f's tile order (the
-   wrapper's, heaviest first, against natural order, each alone and by
-   call) and a SHA-256 digest of its out4 and t_chk.
+   walked chunks) and both issue floors, and a SHA-256 digest of B5f's
+   out4 and t_chk.
 8. Codec phase: the training phase's fitted state through
    ``conduct_encoding`` -> ``save_streams`` -> ``load_streams`` ->
    ``conduct_decoding`` -> ``evaluate_video`` over all 600 frames (B4 once
@@ -565,11 +564,12 @@ def bidir_work(settings, attrs, lists, counts, pairs):
 
 
 def tile_work(settings, cnt, chk, pairs):
-    """Work per block of B5f and B5b (one block a plane row): (log text,
-    the heaviest row's pairs, the padding share of the walked chunks'
-    slots).  B5f walks a row's used chunks while some pixel of the tile
-    keeps T >= T_EPS at the chunk's start, B5b replays the same chunks:
-    those up to the last used one whose checkpoint has a live pixel."""
+    """Work per block of B5f and B5b (one block a plane row): (log text
+    with the padding share of the walked chunks' slots, the heaviest
+    row's pairs).  B5f walks a row's used chunks while some pixel of the
+    tile keeps T >= T_EPS at the chunk's start, B5b replays the same
+    chunks: those up to the last used one whose checkpoint has a live
+    pixel."""
     from gsvc_tpu_torch.render.splat import T_EPS
 
     cnt = cnt.long()
@@ -593,7 +593,7 @@ def tile_work(settings, cnt, chk, pairs):
             f"{int(per_row.sum())} pairs of copies (plain version: "
             f"{pairs}); heaviest row {best} pairs "
             f"({best / max(pairs, 1):.2%} of all)")
-    return text, best, pad
+    return text, best
 
 
 def synthetic_tiles(settings, seed: int, device):
@@ -1439,55 +1439,13 @@ def b5f_digest(out4, t_chk) -> str:
                     for name, t in (("out4", out4), ("t_chk", t_chk)))
 
 
-def tile_order_ms(tile, settings, planes, cnt, out_k, chk_k, label):
-    """B5f with its blocks taking the rows in natural order (block r, row
-    r: the C entry given an identity order built beforehand) against the
-    wrapper's heaviest-first order, whose sort of the counts is part of
-    its call: each kernel alone (``kernel_ms``, in turns heaviest,
-    natural, natural, heaviest), each call back to back (``paired_ms``)
-    and the sort alone; the natural order must give the wrapper's bits.
-    Returns (heaviest alone, natural alone) in ms."""
-    n_rows = cnt.numel()
-    natural = torch.arange(n_rows, dtype=torch.int32, device=cnt.device)
-    out4, chk = torch.empty_like(out_k), torch.empty_like(chk_k)
-    fn, ptrs = tile._fn("tile_fwd", "tile_forward", 4), \
-        tile._plane_ptrs(planes)
-
-    def nat():
-        tile._launch(fn, settings, n_rows, (ptrs, cnt.data_ptr(),
-                                            natural.data_ptr(),
-                                            out4.data_ptr(), chk.data_ptr()),
-                     cnt.device)
-
-    def heavy():
-        return tile.tile_fwd_cuda(settings, planes, cnt)
-
-    nat()
-    torch.cuda.synchronize()
-    if not (torch.equal(out4, out_k) and torch.equal(chk, chk_k)):
-        raise AssertionError(f"{label}: B5f in natural order gave other "
-                             f"bits than heaviest first")
-    h1, n1 = (kernel_ms(f, "tile_fwd_kernel", 10)[0] for f in (heavy, nat))
-    n2, h2 = (kernel_ms(f, "tile_fwd_kernel", 10)[0] for f in (nat, heavy))
-    h_call, n_call = paired_ms(heavy, nat, 10)
-    sort_ms = cuda_ms(lambda: torch.argsort(cnt, descending=True,
-                                            stable=True).to(torch.int32),
-                      20)
-    log(f"{label}: B5f tile order: heaviest first alone {h1:.4f} / "
-        f"{h2:.4f} ms, call {h_call:.4f} ms (its sort alone {sort_ms:.4f} "
-        f"ms); natural order alone {n1:.4f} / {n2:.4f} ms, call "
-        f"{n_call:.4f} ms (order built beforehand); same bits")
-    return (h1 + h2) / 2, (n1 + n2) / 2
-
-
 def tile_check(tile, settings, attrs, lists, counts, label):
     """B5f (with and without checkpoints) and B5b against their plain
     versions on V views' planes, and the plane gradients of both pushed
     through the gather's transpose to per-gaussian rows, with and without
     per-view means2d; then both kernels and plain versions timed against
     their bounds, each kernel alone too, with their work per block, issue
-    floors, B5f's tile order (``tile_order_ms``) and B5f's output digest.
-    Returns (B5f numbers, B5b numbers)."""
+    floors and B5f's output digest.  Returns (B5f numbers, B5b numbers)."""
     from gsvc_tpu_torch.render.splat import gather_tile_planes_rows
 
     planes, cnt = view_planes(attrs, lists, counts)
@@ -1541,7 +1499,7 @@ def tile_check(tile, settings, attrs, lists, counts, label):
                              f"version: {bwd_err} > {BWD_REL_ERR} of the "
                              f"largest gradient")
     f_ms = cuda_ms(lambda: tile.tile_fwd_cuda(settings, planes, cnt), 10)
-    f_kernel, f_device = kernel_ms(lambda: tile.tile_fwd_cuda(
+    f_kernel, _ = kernel_ms(lambda: tile.tile_fwd_cuda(
         settings, planes, cnt), "tile_fwd_kernel", 10)
     b_ms = cuda_ms(lambda: tile.tile_bwd_cuda(settings, planes, cnt, out_p,
                                               chk_p, g_out), 5)
@@ -1558,26 +1516,23 @@ def tile_check(tile, settings, attrs, lists, counts, label):
         f"copies, {int((cnt == 0).sum())} empty rows; B5f max |kernel - "
         f"plain| {fwd_err:.3e} (limit {MAX_ABS_ERR:.0e}; out, t_chk and the "
         f"checkpoint-free launch), kernel {f_ms:.4f} ms, alone "
-        f"{f_kernel:.4f} ms (all device work of a call {f_device:.4f} ms), "
-        f"plain {f_plain:.3f} ms, bound {fb[0]:.4f} ms ({fb[1]}; {pairs_f} "
-        f"pairs); B5b max |kernel - plain| / max |plain| {bwd_err:.3e} "
-        f"(limit {BWD_REL_ERR:.0e}; max |kernel - plain| {bwd_abs:.3e}; "
-        f"per-slot rows and the gather's transpose with and without "
-        f"means2d; two launches bit-identical), kernel {b_ms:.4f} ms, "
+        f"{f_kernel:.4f} ms, plain {f_plain:.3f} ms, bound {fb[0]:.4f} ms "
+        f"({fb[1]}; {pairs_f} pairs); B5b max |kernel - plain| / max "
+        f"|plain| {bwd_err:.3e} (limit {BWD_REL_ERR:.0e}; max |kernel - "
+        f"plain| {bwd_abs:.3e}; per-slot rows and the gather's transpose "
+        f"with and without means2d; two launches bit-identical), kernel "
+        f"{b_ms:.4f} ms, "
         f"alone {b_kernel:.4f} ms, plain {b_plain:.3f} ms, bound "
         f"{bb[0]:.4f} ms ({bb[1]}; {pairs_b} pairs)")
-    work, heaviest, pad = tile_work(settings, cnt, chk_p, pairs_b)
+    work, heaviest = tile_work(settings, cnt, chk_p, pairs_b)
     threads, ppt = tile.launch_shape(settings)
     log(f"{label}: B5f/B5b launch {threads} threads x {ppt} pixels; work "
         f"per block: {work}")
     log(f"{label}: B5f {floors('B5f', pairs_f, heaviest, threads)}")
     log(f"{label}: B5b {floors('B5b', pairs_b, heaviest, threads)}")
     log(f"{label}: B5f {b5f_digest(out_k, chk_k)}")
-    heavy, natural = tile_order_ms(tile, settings, planes, cnt, out_k, chk_k,
-                                   label)
     return (dict(ms=f_ms, kernel_ms=f_kernel, plain_ms=f_plain,
-                 bound_ms=fb[0], bound_by=fb[1], max_abs_err=fwd_err,
-                 padding_share=pad, natural_ms=natural),
+                 bound_ms=fb[0], bound_by=fb[1], max_abs_err=fwd_err),
             dict(ms=b_ms, kernel_ms=b_kernel, plain_ms=b_plain,
                  bound_ms=bb[0], bound_by=bb[1], max_abs_err=bwd_abs))
 

@@ -32,11 +32,11 @@
 // the early stop) publishes them.  A chunk's walk ends at the row's count (clamped to
 // cap where the list overflowed): the padding slots of a partly filled last chunk
 // (opacity 0, zero alpha) are neither staged nor walked, and no stale slot of the other
-// stage is read.  The blocks take the rows heaviest first (order[], the wrapper's sort
-// of the counts), so the longest rows start in the first wave.  The TPU kernel's
-// log-space triangular-matmul cumsum (a Mosaic workaround) becomes a per-pixel running
-// product inside the chunk (t_before = T_carry * E, E *= 1 - alpha); the carry
-// multiplies by the unmasked chunk product, and a copy contributes only where
+// stage is read.  Block r composites row r: launching the rows heaviest first ran the
+// kernel 5% faster, but the sort of the counts cost more than that saved.  The TPU
+// kernel's log-space triangular-matmul cumsum (a Mosaic workaround) becomes a
+// per-pixel running product inside the chunk (t_before = T_carry * E, E *= 1 - alpha);
+// the carry multiplies by the unmasked chunk product, and a copy contributes only where
 // t_before >= T_EPS, as on the TPU.  Each block writes only its own rows of out and
 // t_chk.
 #include "replay.cuh"
@@ -58,11 +58,11 @@ using gsvc::stage_planes;
 
 template <int PPT>
 __global__ void __launch_bounds__(kMaxThreads)
-tile_fwd_kernel(Planes pl, const int* __restrict__ counts, const int* __restrict__ order,
-                float* __restrict__ out, float* __restrict__ tchk, int n_tiles,
-                int n_tiles_x, int tile_w, int cap, int chunk, float bg) {
+tile_fwd_kernel(Planes pl, const int* __restrict__ counts, float* __restrict__ out,
+                float* __restrict__ tchk, int n_tiles, int n_tiles_x, int tile_w, int cap,
+                int chunk, float bg) {
   __shared__ Stage st[2];
-  const int row = order[blockIdx.x];
+  const int row = blockIdx.x;
   const int u = row % n_tiles;
   const int tx = u % n_tiles_x;
   const int p_pix = blockDim.x * PPT;
@@ -152,28 +152,25 @@ tile_fwd_kernel(Planes pl, const int* __restrict__ counts, const int* __restrict
 }  // namespace
 
 // Launches one block per plane row on `stream`: n_rows blocks of `threads` threads (a
-// multiple of tile_w) with `ppt` pixels each, block b compositing row order[b].  planes
-// is a host array of nine device pointers to [n_rows, cap] f32 planes; counts [n_rows]
-// i32, order [n_rows] i32 (a permutation of the rows), out [n_rows, 4, P] f32 and tchk
-// [n_rows, cap / chunk + 1, P] f32 (or null: no checkpoints) are device pointers,
+// multiple of tile_w) with `ppt` pixels each.  planes is a host array of nine device
+// pointers to [n_rows, cap] f32 planes; counts [n_rows] i32, out [n_rows, 4, P] f32 and
+// tchk [n_rows, cap / chunk + 1, P] f32 (or null: no checkpoints) are device pointers,
 // P = threads * ppt = tile_h * tile_w.  Returns cudaGetLastError() after the launch
 // (0 on success).
-extern "C" int tile_forward(const float* const* planes, const int* counts,
-                            const int* order, float* out, float* tchk, int n_rows,
-                            int n_tiles, int n_tiles_x, int tile_w, int cap, int chunk,
-                            int threads, int ppt, float bg, void* stream) {
+extern "C" int tile_forward(const float* const* planes, const int* counts, float* out,
+                            float* tchk, int n_rows, int n_tiles, int n_tiles_x,
+                            int tile_w, int cap, int chunk, int threads, int ppt,
+                            float bg, void* stream) {
   if (chunk <= 0 || chunk > kMaxChunk || cap % chunk != 0 || threads <= 0 ||
-      threads > kMaxThreads || tile_w <= 0 || threads % tile_w != 0 || n_tiles <= 0 ||
-      order == nullptr)
+      threads > kMaxThreads || tile_w <= 0 || threads % tile_w != 0 || n_tiles <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows == 0) return 0;
   Planes pl;
   for (int i = 0; i < 9; ++i) pl.p[i] = planes[i];
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define GSVC_TILE_FWD_LAUNCH(P)                                                     \
-  tile_fwd_kernel<P><<<n_rows, threads, 0, st>>>(pl, counts, order, out, tchk,     \
-                                                 n_tiles, n_tiles_x, tile_w, cap,  \
-                                                 chunk, bg)
+  tile_fwd_kernel<P><<<n_rows, threads, 0, st>>>(pl, counts, out, tchk, n_tiles,   \
+                                                 n_tiles_x, tile_w, cap, chunk, bg)
   switch (ppt) {
     case 1: GSVC_TILE_FWD_LAUNCH(1); break;
     case 2: GSVC_TILE_FWD_LAUNCH(2); break;

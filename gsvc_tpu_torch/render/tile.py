@@ -109,9 +109,8 @@ def _launch(fn, settings, n_rows, ptrs, device):
 
 def tile_fwd_cuda(settings: RasterSettings, planes, counts,
                   save_tchk: bool = True):
-    """Launch kernel B5f once, its blocks taking the rows in falling
-    order of their copies (one sort of the counts on the card).  Returns
-    (out4 [V*T, 4, P], t_chk [V*T, n_chunks + 1, P] or None)."""
+    """Launch kernel B5f once.  Returns (out4 [V*T, 4, P], t_chk
+    [V*T, n_chunks + 1, P] or None)."""
     n_rows = check_planes(settings, planes, counts)
     ptrs = _plane_ptrs(planes)
     if not counts.is_cuda or not counts.is_contiguous():
@@ -122,10 +121,8 @@ def tile_fwd_cuda(settings: RasterSettings, planes, counts,
     out4 = torch.empty((n_rows, 4, p_pix), dtype=torch.float32, device=dev)
     t_chk = torch.empty((n_rows, n_chunks + 1, p_pix), dtype=torch.float32,
                         device=dev) if save_tchk else None
-    order = torch.argsort(counts, descending=True,
-                          stable=True).to(torch.int32)
-    _launch(_fn("tile_fwd", "tile_forward", 4), settings, n_rows,
-            (ptrs, counts.data_ptr(), order.data_ptr(), out4.data_ptr(),
+    _launch(_fn("tile_fwd", "tile_forward", 3), settings, n_rows,
+            (ptrs, counts.data_ptr(), out4.data_ptr(),
              t_chk.data_ptr() if save_tchk else None), dev)
     return out4, t_chk
 
