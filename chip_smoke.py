@@ -130,9 +130,33 @@
    step 7.  The fit is not bitwise repeatable, so with GSVC_SMOKE_PAIR
    set to a file name the first run saves its pair there and every run
    prints the digest of B5f's output on the saved pair.
-11. Prints the kernel table as one JSON line (``ms``: the wrapper's
+11. Whole-video phase (``whole_video_phase``): the first 16 decoded
+   frames as PNGs with seeded uniform flow fields, and the fixture's
+   cfg_args.yaml with the narrow phase's schedule in the file (segments
+   are given no --set).  ``cli.train.main --gop_size 8`` encodes them in
+   two GOPs at the fixture's full model; the counts, reset before and read
+   after, must show B1 and B2 once a step, B3f/B3b once an entropy step,
+   B4 once per frame of each decoded evaluation and no B5f, B5b, B6f or
+   B6b; each ``gop_*`` must hold bitstreams/, results.json (bpp > 0,
+   finite decoded PSNR), metrics.jsonl, cfg_args.yaml, chkpnt_final.pkl
+   and point_cloud/final/ (the PLY equal to the checkpoint's first
+   n_active anchors) and the summary gops == 2.  Then ``cli.decode`` on
+   GOP 0 with GSVC_DECODE=mirror and proxy LPIPS: B1 once per frame and
+   no B4, LPIPS in [0, 1), the PSNR within 0.01 dB of B4's on the same
+   decoded state (fps of both printed); ``cli.train --profile`` (the
+   trace must parse; whether B1 and B2 show in it is printed); LPIPS at
+   full VGG16 width on decoded frame 0, on the card with cuDNN's TF32
+   switch at PyTorch's default against the CPU at rel 1e-6 (TF32 would
+   differ by ~1.5e-5);
+   ``cli.debug_vis`` (three PNGs) and ``ViewerServer.render_png(0)``
+   against the decode's frame 0 (1 LSB).  ``cli.sweep`` is not run: it
+   only loops over ``cli.train.main``, which this phase runs, and each
+   point would cost another ~30 s host codec round trip.
+12. Prints the kernel table as one JSON line (``ms``: the wrapper's
    call, 20 back to back under CUDA events; ``kernel_ms``, B3f, B3b, B4,
-   B5f, B5b, B6f and B6b: the kernel alone), then the result line.
+   B5f, B5b, B6f and B6b: the kernel alone; ``launches``: the sum over
+   the paths that were counted, each reset before and read after), then
+   the result line.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 Frames are written nowhere; the checkpoint goes to a temporary directory.
@@ -2209,6 +2233,370 @@ def narrow_phase(frames, bidir, mirror, tile, hk):
     return b5f, b5b, res, meds
 
 
+WHOLE_FRAMES = 16       # frames of the whole-video phase's video
+WHOLE_GOP = 8           # its --gop_size: two GOPs
+WHOLE_PROFILE_STEPS = 4
+# LPIPS on the card against the CPU: in float32 the two differ by ~1e-7
+# relative, with the convolutions in TF32 (the guard in ``lpips`` gone) by
+# ~1.5e-5 on a decoded 1080p frame, so 1e-4 could not tell them apart
+LPIPS_REL = 1e-6
+
+
+def whole_video_files(frames, root: pathlib.Path):
+    """The first WHOLE_FRAMES frames as PNGs in ``root/frames``, one seeded
+    uniform flow field a frame pair (float16 [2, H, W] pickles) in
+    ``root/flow``, GOP 0's frames and flows as symlinks in ``root/gop0``,
+    and ``root/cfg.yaml``: the fixture's config with the narrow phase's
+    12-step schedule in the file (the segments are given no --set)."""
+    import pickle
+
+    from PIL import Image
+
+    from gsvc_tpu_torch.config import load_config, save_config
+
+    for sub in ("frames", "flow", "gop0/frames", "gop0/flow"):
+        (root / sub).mkdir(parents=True)
+    h, w = frames.shape[1:3]
+    rng = np.random.default_rng(0)
+    for i in range(WHOLE_FRAMES):
+        Image.fromarray(frames[i]).save(root / "frames" / f"f_{i:04d}.png",
+                                        compress_level=1)
+        if i < WHOLE_GOP:
+            os.symlink(root / "frames" / f"f_{i:04d}.png",
+                       root / "gop0/frames" / f"f_{i:04d}.png")
+        if i + 1 < WHOLE_FRAMES:
+            uv = rng.normal(0, 1.5, 2).astype(np.float16)
+            flow = np.broadcast_to(uv[:, None, None], (2, h, w)).copy()
+            with open(root / "flow" / f"flow_{i:04d}.pkl", "wb") as f:
+                pickle.dump(flow, f)
+            if i + 1 < WHOLE_GOP:
+                os.symlink(root / "flow" / f"flow_{i:04d}.pkl",
+                           root / "gop0/flow" / f"flow_{i:04d}.pkl")
+    cfg = load_config(str(FIXTURE_DIR / "cfg_args.yaml"), overrides=NARROW_SET)
+    save_config(cfg, str(root / "cfg.yaml"))
+
+
+def lpips_npz(path: pathlib.Path, seed: int = 0):
+    """Seeded weights at full VGG16 width in the LPIPS exporter's npz
+    schema (``features.{i}.weight|bias``, ``lin{k}.weight``)."""
+    from gsvc_tpu_torch.metrics.lpips import _SLICES, _VGG_CONVS
+
+    widths = (64, 64, 128, 128, 256, 256, 256, 512, 512, 512, 512, 512, 512)
+    rng = np.random.default_rng(seed)
+    out, in_ch = {}, 3
+    for ci, conv_idx in enumerate(_VGG_CONVS):
+        out[f"features.{conv_idx}.weight"] = rng.normal(
+            0, np.sqrt(2.0 / (in_ch * 9)), (widths[ci], in_ch, 3, 3)).astype(
+                np.float32)
+        out[f"features.{conv_idx}.bias"] = np.zeros(widths[ci], np.float32)
+        in_ch = widths[ci]
+    for k, upto in enumerate(_SLICES):
+        c = widths[upto - 1]
+        out[f"lin{k}.weight"] = (rng.uniform(0.5, 1.5, (1, c, 1, 1)).astype(
+            np.float32) / c)
+    np.savez(path, **out)
+
+
+def whole_video_phase(frames, hk, counters):
+    """The whole-video encode and the rest of the single-GPU surface on
+    the first WHOLE_FRAMES decoded 1080p frames at the fixture's full
+    model (``whole_video_files``):
+
+    (a) ``cli.train.main --gop_size 8``: two GOPs, each fit (12 steps),
+        estimate, encode, decode and evaluation through ``main``.  The
+        counts are reset before and read after, per step (B1 and B2 once,
+        B3f/B3b once in the entropy steps and never before them), per
+        decoded evaluation (B4 once per frame) and in all (no B5f, B5b,
+        B6f, B6b); each ``gop_*`` holds every artifact, its
+        ``point_cloud.ply`` gives back the checkpoint's first n_active
+        anchors exactly, and results.json has gops == 2;
+    (b) ``cli.decode --lpips_weights proxy --dump_frames`` on GOP 0's
+        bitstream and frames with GSVC_DECODE=mirror: B1 once per frame and
+        never B4, a finite LPIPS in [0, 1), and a PSNR within 0.01 dB of
+        the same decoded state rendered through B4 (``evaluate_video``
+        with GSVC_DECODE=bidir; fps side by side) and printed beside the
+        train CLI's decoded PSNR of GOP 0;
+    (c) ``cli.train --profile`` (WHOLE_PROFILE_STEPS steps, --skip_codec)
+        on GOP 0: the trace parses as JSON; whether B1 and B2 show in it is
+        printed, not required (PERF.md §7);
+    (d) ``lpips`` at full VGG16 width (``lpips_npz``) on decoded frame 0
+        against its ground truth, on the card with cuDNN's TF32 switch
+        at PyTorch's default (on) and on the CPU: LPIPS_REL (the call
+        without the guard is printed beside them);
+    (e) ``cli.debug_vis`` on GOP 0's checkpoint (its three PNGs), and
+        ``viewer.ViewerServer.render_png(0)`` on the decoded state equal to
+        the decode's frame 0 to 1 LSB.
+
+    ``cli.sweep`` is not run: it only loops over ``cli.train.main``.
+    Returns the launches of (a) and (b) by kernel name."""
+    import contextlib
+    import io
+
+    import gsvc_tpu_torch.cli.decode as cli_decode
+    import gsvc_tpu_torch.report as report
+    from PIL import Image
+
+    from gsvc_tpu_torch.cli import debug_vis, train as cli_train
+    from gsvc_tpu_torch.framecube.frame import FrameFolder
+    from gsvc_tpu_torch.metrics.lpips import load_lpips_weights, lpips
+    from gsvc_tpu_torch.models.gaussians import GenerateMode
+    from gsvc_tpu_torch.train.fit import GOPFitter
+    from gsvc_tpu_torch.utils.checkpoint import read_checkpoint
+    from gsvc_tpu_torch.utils.ply import load_gaussian_ply
+    from gsvc_tpu_torch.viewer import ViewerServer
+
+    t_phase = time.perf_counter()
+    names = [n for n, _ in counters]
+
+    def counts():
+        return tuple(c.launches for _, c in counters)
+
+    def named(c):
+        return dict(zip(names, c))
+
+    root = pathlib.Path(tempfile.mkdtemp(prefix="gsvc_smoke_whole_"))
+    t0 = time.perf_counter()
+    whole_video_files(frames, root)
+    log(f"whole-video phase: {WHOLE_FRAMES} PNG frames, "
+        f"{WHOLE_FRAMES - 1} flow pickles and the config written in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # (a) the segmented encode through the train CLI
+    steps, evals = [], []
+    orig = (GOPFitter._run_single, report.evaluate_video)
+
+    def run_single(self, it, n):
+        c0 = counts()
+        m = orig[0](self, it, n)
+        steps.append((phase_of(it, NARROW_PHASES),
+                      named(tuple(b - a for a, b in zip(c0, counts())))))
+        return m
+
+    def evaluate_video(*a, **k):
+        c0 = counts()
+        r = orig[1](*a, **k)
+        evals.append((r["num_frames"],
+                      named(tuple(b - a_ for a_, b in zip(c0, counts())))))
+        return r
+
+    GOPFitter._run_single, report.evaluate_video = run_single, evaluate_video
+    try:
+        for _, c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary = cli_train.main([
+            "--source_path", str(root / "frames"), "--optical_path",
+            str(root / "flow"), "--model_path", str(root / "out"),
+            "--config_path", str(root / "cfg.yaml"),
+            "--gop_size", str(WHOLE_GOP)])
+        torch.cuda.synchronize()
+        train_wall = time.perf_counter() - t0
+        train_total = named(counts())
+    finally:
+        GOPFitter._run_single, report.evaluate_video = orig
+    log(f"whole-video phase: cli.train.main --gop_size {WHOLE_GOP} in "
+        f"{train_wall:.2f} s wall: summary {json.dumps(summary)}")
+    log(f"whole-video phase: launches in all {train_total}; per decoded "
+        f"evaluation {evals}")
+    n_gops = WHOLE_FRAMES // WHOLE_GOP
+    if summary["gops"] != n_gops or len(summary["per_gop"]) != n_gops:
+        raise AssertionError(f"summary {summary}")
+    if len(steps) != n_gops * NARROW_STEPS:
+        raise AssertionError(f"{len(steps)} steps, expected "
+                             f"{n_gops * NARROW_STEPS}")
+    for phase, c in steps:
+        entropy = phase in ("ENTROPY", "STE_ENTROPY")
+        want = dict(B1=1, B2=1, B3b=int(entropy))
+        if any(c[k] != v for k, v in want.items()) or \
+                (c["B3f"] != 1 if entropy else c["B3f"] != 0) or any(
+                    c[k] for k in ("B4", "B5f", "B5b", "B6f", "B6b")):
+            raise AssertionError(f"per-step launches {steps}: expected B1 "
+                                 f"and B2 once a step, B3f/B3b once in the "
+                                 f"entropy steps and nothing else")
+    if len(evals) != n_gops or any(
+            c != dict(named((0,) * len(names)), B4=n) for n, c in evals):
+        raise AssertionError(f"decoded evaluations {evals}: expected B4 once "
+                             f"per frame and nothing else")
+    if any(train_total[k] for k in ("B5f", "B5b", "B6f", "B6b")):
+        raise AssertionError(f"launches {train_total}")
+    for (start, res) in zip(range(0, WHOLE_FRAMES, WHOLE_GOP),
+                            summary["per_gop"]):
+        gop = root / "out" / f"gop_{start:05d}"
+        for name in ("bitstreams", "results.json", "metrics.jsonl",
+                     "cfg_args.yaml", "chkpnt_final.pkl",
+                     "point_cloud/final/point_cloud.ply",
+                     "point_cloud/final/networks.pkl"):
+            if not (gop / name).exists():
+                raise AssertionError(f"{gop} lacks {name}")
+        if not (res["bpp"] > 0 and np.isfinite(res["decoded_psnr"])):
+            raise AssertionError(f"{gop}: results {res}")
+        ck = read_checkpoint(str(gop / "chkpnt_final.pkl"))
+        n = int(ck["n_active"])
+        ply = load_gaussian_ply(str(gop / "point_cloud/final/point_cloud.ply"))
+        for k, v in ply.items():
+            if not np.array_equal(v, ck["anchors"][k][:n]):
+                raise AssertionError(f"{gop}: point_cloud.ply {k} is not the "
+                                     f"checkpoint's first {n} anchors")
+        log(f"whole-video phase: GOP {start}: {n} anchors, bpp "
+            f"{res['bpp']:.5f}, {res['size_mb']:.3f} MB, encode "
+            f"{res['encode_seconds']:.2f} s, decode "
+            f"{res['decode_seconds']:.2f} s, decoded PSNR "
+            f"{res['decoded_psnr']:.4f} dB, SSIM {res['decoded_ssim']:.4f}, "
+            f"decode fps {res['decode_fps']:.2f} (B4)")
+    if not (root / "out/results.json").exists():
+        raise AssertionError("no summary results.json")
+
+    # (b) the mirror decode with LPIPS through the decode CLI
+    decoded = []
+    orig_dec = cli_decode.decode_bitstream
+
+    def decode_bitstream(*a, **k):
+        decoded.append(orig_dec(*a, **k))
+        return decoded[-1]
+
+    env = os.environ.get("GSVC_DECODE")
+    cli_decode.decode_bitstream = decode_bitstream
+    os.environ["GSVC_DECODE"] = "mirror"
+    try:
+        for _, c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev = cli_decode.main([
+            "--bitstream_path", str(root / "out/gop_00000/bitstreams"),
+            "--model_path", str(root / "dec"), "--source_path",
+            str(root / "gop0/frames"), "--lpips_weights", "proxy",
+            "--dump_frames"])
+        torch.cuda.synchronize()
+        dec_wall = time.perf_counter() - t0
+        dec_total = named(counts())
+        dec = decoded[0]
+        viewer = ViewerServer(dec.state, dec.cfg, dec.settings,
+                              dec.window_cap, dec.frame_zs, dec.x_min,
+                              dec.y_min, dec.scale, decoded=True)
+        png0 = viewer.render_png(0)
+        os.environ["GSVC_DECODE"] = "bidir"
+        ev_b4 = report.evaluate_video(
+            dec.state, dec.cfg, dec.settings, dec.window_cap, dec.frame_zs,
+            dec.x_min, dec.y_min, dec.scale,
+            gt_images=FrameFolder(str(root / "gop0/frames")))
+    finally:
+        cli_decode.decode_bitstream = orig_dec
+        if env is None:
+            os.environ.pop("GSVC_DECODE")
+        else:
+            os.environ["GSVC_DECODE"] = env
+    want_psnr = summary["per_gop"][0]["decoded_psnr"]
+    log(f"whole-video phase: cli.decode (GSVC_DECODE=mirror, proxy LPIPS) in "
+        f"{dec_wall:.2f} s wall (host decode {dec.seconds:.2f} s): "
+        f"{json.dumps({k: v for k, v in ev.items() if k != 'per_frame_psnr'})}"
+        f"; launches {dec_total}")
+    log(f"whole-video phase: GOP 0 decoded PSNR {ev['psnr']:.4f} dB through "
+        f"B1 (mirror, fps {ev['fps']:.2f}), {ev_b4['psnr']:.4f} dB through B4 "
+        f"on the same decoded state and settings (fps {ev_b4['fps']:.2f}), "
+        f"{want_psnr:.4f} dB in the train CLI's evaluation (B4 at the "
+        f"fitter's settings, tile {dec.settings.tile_h}x"
+        f"{dec.settings.tile_w} here); proxy LPIPS {ev['lpips']:.6f}")
+    if dec_total["B1"] != WHOLE_GOP or any(
+            v for k, v in dec_total.items() if k != "B1"):
+        raise AssertionError(f"mirror decode launches {dec_total}: expected "
+                             f"B1 once per frame and nothing else")
+    if not abs(ev["psnr"] - ev_b4["psnr"]) <= 0.01:
+        raise AssertionError(f"mirror PSNR {ev['psnr']} is not within 0.01 "
+                             f"dB of B4's {ev_b4['psnr']}")
+    if not 0 <= ev["lpips"] < 1:
+        raise AssertionError(f"LPIPS {ev['lpips']}")
+
+    # (c) the profiled fit
+    t0 = time.perf_counter()
+    cli_train.main(["--source_path", str(root / "gop0/frames"),
+                    "--model_path", str(root / "prof"), "--config_path",
+                    str(root / "cfg.yaml"), "--skip_codec", "--iterations",
+                    str(WHOLE_PROFILE_STEPS), "--profile",
+                    str(root / "trace")])
+    trace_path = root / "trace" / "trace.json"
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    kernels = {e.get("name", "") for e in events
+               if e.get("cat") == "kernel"}
+    shows = {k: any(pat in n for n in kernels)
+             for k, pat in (("B1", "mirror_fwd"), ("B2", "mirror_bwd"))}
+    log(f"whole-video phase: --profile ({WHOLE_PROFILE_STEPS} steps) in "
+        f"{time.perf_counter() - t0:.2f} s: {trace_path.stat().st_size} "
+        f"bytes, {len(events)} events, {len(kernels)} kernel names; B1/B2 "
+        f"in the trace: {shows}")
+
+    # (d) LPIPS at full VGG16 width, card against CPU, TF32 at its default
+    lpips_npz(root / "lpips_vgg16.npz")
+    gt0 = torch.from_numpy(frames[0]).float() / 255.0
+    img0 = report._make_eval_render(
+        dec.cfg, dec.settings, dec.window_cap, dec.x_min, dec.y_min,
+        dec.scale, GenerateMode.DECODED, True)(
+            dec.state, float(dec.frame_zs[0])).permute(1, 2, 0)
+    smoke_flags = (torch.backends.cuda.matmul.allow_tf32,
+                   torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False     # PyTorch's defaults
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        w_card = load_lpips_weights(str(root / "lpips_vgg16.npz"), "cuda")
+        lpips(w_card, img0, gt0.cuda())                # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = float(lpips(w_card, img0, gt0.cuda()))
+        card_s = time.perf_counter() - t0
+        tf32_after = torch.backends.cudnn.allow_tf32
+        # what the guard prevents: the same call with cuDNN's flags left
+        # alone, i.e. the convolutions in TF32
+        guard = torch.backends.cudnn.flags
+        torch.backends.cudnn.flags = lambda **_: contextlib.nullcontext()
+        try:
+            unguarded = float(lpips(w_card, img0, gt0.cuda()))
+        finally:
+            torch.backends.cudnn.flags = guard
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = smoke_flags
+    t0 = time.perf_counter()
+    cpu = float(lpips(load_lpips_weights(str(root / "lpips_vgg16.npz")),
+                      img0.cpu(), gt0))
+    cpu_s = time.perf_counter() - t0
+    log(f"whole-video phase: full-width LPIPS of decoded frame 0 "
+        f"({gt0.shape[1]}x{gt0.shape[0]}): card {card!r} ({card_s:.3f} s, "
+        f"cuDNN TF32 flag on before and {tf32_after} after), CPU {cpu!r} "
+        f"({cpu_s:.2f} s), rel diff {abs(card - cpu) / abs(cpu):.3e}; "
+        f"without the guard (TF32) {unguarded!r}, rel diff "
+        f"{abs(unguarded - cpu) / abs(cpu):.3e}")
+    if not tf32_after or not abs(card - cpu) <= LPIPS_REL * abs(cpu):
+        raise AssertionError(f"LPIPS on the card {card} against the CPU's "
+                             f"{cpu} (TF32 flag after: {tf32_after})")
+
+    # (e) debug renders and the viewer
+    t0 = time.perf_counter()
+    debug_vis.main(["--model_path", str(root / "out/gop_00000"),
+                    "--checkpoint",
+                    str(root / "out/gop_00000/chkpnt_final.pkl"),
+                    "--source_path", str(root / "gop0/frames"),
+                    "--optical_path", str(root / "gop0/flow"),
+                    "--config_path", str(root / "cfg.yaml")])
+    vis = root / "out/gop_00000/debug_vis"
+    pngs = sorted(p.name for p in vis.iterdir())
+    log(f"whole-video phase: cli.debug_vis in {time.perf_counter() - t0:.2f}"
+        f" s: {pngs}")
+    if pngs != ["flow_field_0.png", "flow_scatter_0.png",
+                "gaussians_xy_0.png"]:
+        raise AssertionError(f"debug_vis wrote {pngs}")
+    got = np.asarray(Image.open(io.BytesIO(png0)), np.int16)
+    want = np.asarray(Image.open(root / "dec/frames/frame_00000.png"),
+                      np.int16)
+    if got.shape != want.shape or np.abs(got - want).max() > 1:
+        raise AssertionError(f"viewer frame 0 differs from the decode's by "
+                             f"{np.abs(got - want).max()} levels")
+    wall = time.perf_counter() - t_phase
+    log(f"whole-video phase: viewer frame 0 equals the decode's to "
+        f"{int(np.abs(got - want).max())} LSB; phase wall {wall:.2f} s")
+    return {k: train_total[k] + dec_total[k] for k in names}
+
+
 # python3 chip_smoke.py --fit-study [index ...]: name, seed, fit steps,
 # eval every, overrides on STUDY_SCHEDULE, keep the frame draws of a run
 # without epochs (the epoch's random draws are undone).  STUDY_SCHEDULE
@@ -2371,6 +2759,15 @@ def main() -> int:
     b6b.update(launches=fit_b6[1],
                step_ms=stream_meds["FULL_PRECISION"]["B6b+scatter"])
     b5f, b5b, _, _ = narrow_phase(frames, bidir, mirror, tile, hk)
+    torch.cuda.empty_cache()
+    whole = whole_video_phase(frames, hk, counters + (
+        ("B3f", hk.hashgrid_forward), ("B3b", hk.hashgrid_backward)))
+    # each path's launches: its count reset before it and read after
+    res["launches"] += whole["B4"]
+    b1["launches"] += whole["B1"]
+    b2["launches"] += whole["B2"]
+    b3_launches = (b3_launches[0] + whole["B3f"],
+                   b3_launches[1] + whole["B3b"])
 
     table = {"kernels": [{
         "name": "bidir_composite_attrs",

@@ -17,5 +17,10 @@ the decode and the decoded evaluation.  Training composites through the
 mirror kernels B1 (forward) and B2 (backward) when the frame width is a
 multiple of ``tile_w`` and through the single-view kernels B5f and B5b
 otherwise (where the decoded frame is B5f's two views, not B4's); the
-entropy phases add the hash-grid kernels B3f and B3b.
+entropy phases add the hash-grid kernels B3f and B3b.  Around them: a
+long video one model per segment (``cli.train --gop_size``), the stream
+rasterizer and ``cli.stream``, LPIPS, the two-view decode
+(``GSVC_DECODE=mirror``, B1), ``--profile``, model snapshots, the RD sweep
+(``cli.sweep``), debug renders (``cli.debug_vis``) and the HTTP viewer
+(``viewer``).  Fitting on several GPUs is not ported.
 """

@@ -6,23 +6,24 @@ runs in numpy and the C++ codec; generation, projection, binning and the
 bidirectional composite kernel run on the card.
 
     python -m gsvc_tpu_torch.cli.decode --bitstream_path out/bitstreams \
-        --model_path decoded_out [--source_path frames/ for metrics]
+        --model_path decoded_out [--source_path frames/ for metrics] \
+        [--lpips_weights proxy|weights.npz]
 
-``--device cpu`` runs the plain PyTorch path on the CPU (tests); the
-default is ``cuda`` and fails without a card.
+The render follows ``GSVC_DECODE`` (``bidir``, the default: kernel B4;
+``mirror``: both views through kernel B1) and ``GSVC_RASTERIZER``, as
+``report.evaluate_video`` reads them.  ``--device cpu`` runs the plain
+PyTorch path on the CPU (tests); the default is ``cuda`` and fails
+without a card.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import logging
 import pathlib
 from typing import NamedTuple
 
 import numpy as np
-
-log = logging.getLogger("gsvc_tpu_torch.decode")
 
 
 class Decoded(NamedTuple):
@@ -86,38 +87,35 @@ def main(argv=None):
     p.add_argument("--source_path", type=str, default="",
                    help="original frames (optional, for metrics)")
     p.add_argument("--dump_frames", action="store_true")
-    p.add_argument("--lpips_weights", type=str, default=None)
+    p.add_argument("--lpips_weights", type=str, default=None,
+                   help="npz of VGG16+lin LPIPS weights, or 'proxy'")
     # accepted for parity with the JAX decoder, whose random template
     # initialisation it seeds; the port's template draws no random numbers
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda")
     args = p.parse_args(argv)
-    if args.lpips_weights:
-        raise NotImplementedError("LPIPS is not ported yet; run the JAX "
-                                  "decoder for --lpips_weights")
 
     from gsvc_tpu_torch.framecube.frame import FrameFolder
     from gsvc_tpu_torch.report import evaluate_video
+    from gsvc_tpu_torch.utils.logging import setup_logging
 
     out_dir = pathlib.Path(args.model_path)
-    out_dir.mkdir(parents=True, exist_ok=True)
-    handler = logging.FileHandler(out_dir / "decode.log")
-    log.addHandler(handler)
-    log.setLevel(logging.INFO)
-    try:
-        dec = decode_bitstream(args.bitstream_path, device=args.device)
-        log.info("decoded %d anchors in %.2fs", dec.meta.anchor_num,
-                 dec.seconds)
-        gt = FrameFolder(args.source_path) if args.source_path else None
-        dump = str(out_dir / "frames") if args.dump_frames else None
-        ev = evaluate_video(dec.state, dec.cfg, dec.settings, dec.window_cap,
-                            dec.frame_zs, dec.x_min, dec.y_min, dec.scale,
-                            gt_images=gt, dump_dir=dump)
-        summary = {k: v for k, v in ev.items() if not isinstance(v, list)}
-        log.info("decode eval: %s", json.dumps(summary))
-    finally:
-        log.removeHandler(handler)
-        handler.close()
+    log = setup_logging(str(out_dir), filename="decode.log")
+    dec = decode_bitstream(args.bitstream_path, device=args.device)
+    log.info("decoded %d anchors in %.2fs", dec.meta.anchor_num, dec.seconds)
+    gt = FrameFolder(args.source_path) if args.source_path else None
+    dump = str(out_dir / "frames") if args.dump_frames else None
+    lpips_w = None
+    if args.lpips_weights:
+        from gsvc_tpu_torch.metrics.lpips import load_lpips_weights
+
+        lpips_w = load_lpips_weights(args.lpips_weights,
+                                     device=dec.state.anchors.anchor.device)
+    ev = evaluate_video(dec.state, dec.cfg, dec.settings, dec.window_cap,
+                        dec.frame_zs, dec.x_min, dec.y_min, dec.scale,
+                        gt_images=gt, dump_dir=dump, lpips_weights=lpips_w)
+    summary = {k: v for k, v in ev.items() if not isinstance(v, list)}
+    log.info("decode eval: %s", json.dumps(summary))
     print(json.dumps(summary))
     (out_dir / "decode_results.json").write_text(json.dumps(summary,
                                                             indent=2))

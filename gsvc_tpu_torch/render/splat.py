@@ -480,3 +480,142 @@ def assemble_views(settings: RasterSettings, out4: torch.Tensor):
     full = full.permute(0, 3, 1, 4, 2, 5).reshape(v, 4, nty * th, ntx * tw)
     full = full[:, :, :settings.image_height, :settings.image_width]
     return full[:, :3], full[:, 3]
+
+
+# ---------------------------------------------------------------------------
+# Test oracles: a differentiable dense-in-the-tile compositor, the plain
+# single-view rasterizer over it, and a per-pixel reference with no binning.
+# They are off the main path.
+# ---------------------------------------------------------------------------
+
+def composite_tiles(settings: RasterSettings, planes, tile_counts):
+    """Differentiable compositing over a tile grid, every tile and chunk
+    at once (port of ``composite_tiles_jnp``, gsvc_tpu/render/splat.py:605,
+    and its ``_composite_tile``).
+
+    planes: 9-tuple of [T', cap] depth-ordered attribute rows (T' = V *
+    n_tiles for V concatenated views), tile_counts [T'].  Each chunk
+    composites with a per-pixel live test (T before the copy >= T_EPS);
+    there is no early exit.  Returns [T', 4, P] (premultiplied rgb and the
+    final transmittance), the composite kernels' packing."""
+    n_grid = planes[0].shape[0]
+    dev = planes[0].device
+    th, tw = settings.tile_h, settings.tile_w
+    cap, chunk = settings.gaussian_cap, settings.chunk
+    tile = torch.arange(n_grid, device=dev) % settings.n_tiles
+    px0 = ((tile % settings.n_tiles_x) * tw).to(torch.float32)
+    py0 = ((tile // settings.n_tiles_x) * th).to(torch.float32)
+    pix_x = px0[:, None] + torch.arange(
+        tw, dtype=torch.float32, device=dev).repeat(th)[None]   # [T', P]
+    pix_y = py0[:, None] + torch.arange(
+        th, dtype=torch.float32, device=dev).repeat_interleave(tw)[None]
+    t_carry = torch.ones_like(pix_x)
+    acc = torch.zeros((n_grid, 3, th * tw), dtype=torch.float32, device=dev)
+    pos = torch.arange(cap, device=dev)
+    for c0 in range(0, cap, chunk):
+        (mu_x, mu_y, con_a, con_b, con_c, op, col_r, col_g, col_b) = (
+            p[:, c0:c0 + chunk, None] for p in planes)            # [T',C,1]
+        g_valid = (pos[c0:c0 + chunk][None] < tile_counts[:, None])[..., None]
+        d0 = pix_x[:, None, :] - mu_x                              # [T',C,P]
+        d1 = pix_y[:, None, :] - mu_y
+        q = con_a * d0 * d0 + 2.0 * con_b * d0 * d1 + con_c * d1 * d1
+        alpha = torch.clamp(op * torch.exp(-0.5 * q), max=ALPHA_MAX)
+        alpha = torch.where(g_valid & (alpha >= ALPHA_MIN), alpha,
+                            torch.zeros_like(alpha))
+        one_m = 1.0 - alpha
+        incl = torch.cumprod(one_m, dim=1)
+        excl = torch.cat([torch.ones_like(incl[:, :1]), incl[:, :-1]], dim=1)
+        t_before = t_carry[:, None, :] * excl
+        live = t_before >= T_EPS
+        w = torch.where(live, alpha * t_before, torch.zeros_like(alpha))
+        cols = torch.cat([col_r, col_g, col_b], dim=2)             # [T',C,3]
+        acc = acc + torch.einsum("tcp,tck->tkp", w, cols)
+        t_carry = t_carry * torch.where(live, one_m,
+                                        torch.ones_like(one_m)).prod(dim=1)
+    chans = acc + t_carry[:, None, :] * settings.bg
+    return torch.cat([chans, t_carry[:, None, :]], dim=1)
+
+
+def rasterize(xyz, color, opacity, scaling, rot, valid, frame_z: float,
+              x_min: float, y_min: float, scale: float,
+              settings: RasterSettings, flip: bool = False,
+              means2d=None) -> RasterOutput:
+    """Plain differentiable single-view rasterization (port of
+    ``rasterize``, gsvc_tpu/render/splat.py:655): projection, binning,
+    the row gather and ``composite_tiles``."""
+    proj = project_gaussians(xyz, scaling, rot, valid, frame_z, x_min,
+                             y_min, scale, settings, flip=flip,
+                             means2d=means2d)
+    opacity = torch.where(proj.valid[:, None], opacity,
+                          torch.zeros_like(opacity))
+    tile_lists, counts, dropped, overflow, n_rendered = _bin_gaussians(
+        proj, settings)
+    planes = gather_tile_planes(proj, opacity, color, tile_lists)
+    imgs, ts = assemble_views(settings,
+                              composite_tiles(settings, planes, counts))
+    return RasterOutput(
+        image=imgs[0], transmittance=ts[0], radii=proj.radius,
+        num_rendered=n_rendered, overflow=overflow,
+        harmful_overflow=tile_harmful_overflow(settings, ts[0].detach(),
+                                               dropped))
+
+
+def rasterize_dense_reference(xyz, color, opacity, scaling, rot, valid,
+                              frame_z: float, x_min: float, y_min: float,
+                              scale: float, settings: RasterSettings,
+                              flip: bool = False) -> torch.Tensor:
+    """O(M * H * W) per-pixel compositor that depends on no binning (port
+    of ``rasterize_dense_reference``, gsvc_tpu/render/splat.py:686): the
+    valid gaussians in depth order, each over every pixel of the tiles its
+    radius box overlaps (the tiled path's culling), with the per-pixel
+    T_EPS stop and no capacity.  Runs on the inputs' device; returns
+    [3, H, W].  Tiny images only."""
+    with torch.no_grad():
+        proj = project_gaussians(xyz, scaling, rot, valid, frame_z, x_min,
+                                 y_min, scale, settings, flip=flip)
+        dev = xyz.device
+        depth = torch.where(proj.valid, proj.depth,
+                            torch.full_like(proj.depth, float("inf")))
+        order = torch.argsort(depth, stable=True).cpu().numpy()
+        valid_np = proj.valid.cpu().numpy()
+        # tile box of each gaussian, float32 on the host as in numpy
+        m2 = proj.mean2d.cpu().numpy()
+        rad = proj.radius.cpu().numpy()
+        tw, th = settings.tile_w, settings.tile_h
+        tx0 = np.clip(np.floor((m2[:, 0] - rad) / tw), 0,
+                      settings.n_tiles_x - 1)
+        tx1 = np.clip(np.floor((m2[:, 0] + rad) / tw), 0,
+                      settings.n_tiles_x - 1)
+        ty0 = np.clip(np.floor((m2[:, 1] - rad) / th), 0,
+                      settings.n_tiles_y - 1)
+        ty1 = np.clip(np.floor((m2[:, 1] + rad) / th), 0,
+                      settings.n_tiles_y - 1)
+        h, w = settings.image_height, settings.image_width
+        ys, xs = torch.meshgrid(
+            torch.arange(h, dtype=torch.float32, device=dev),
+            torch.arange(w, dtype=torch.float32, device=dev), indexing="ij")
+        tile_x, tile_y = xs // tw, ys // th
+        img = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
+        t = torch.ones((h, w), dtype=torch.float32, device=dev)
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        one = torch.ones((), dtype=torch.float32, device=dev)
+        for g in order:
+            if not valid_np[g]:
+                continue
+            dx = xs - proj.mean2d[g, 0]
+            dy = ys - proj.mean2d[g, 1]
+            q = proj.conic[g, 0] * dx ** 2 \
+                + 2 * proj.conic[g, 1] * dx * dy + proj.conic[g, 2] * dy ** 2
+            alpha = torch.clamp(opacity[g, 0] * torch.exp(-0.5 * q),
+                                max=ALPHA_MAX)
+            alpha = torch.where(alpha < ALPHA_MIN, zero, alpha)
+            in_tiles = ((tile_x >= float(tx0[g])) & (tile_x <= float(tx1[g]))
+                        & (tile_y >= float(ty0[g]))
+                        & (tile_y <= float(ty1[g])))
+            alpha = torch.where(in_tiles, alpha, zero)
+            live = t >= T_EPS
+            contrib = live * alpha
+            img = img + (contrib * t)[..., None] * color[g]
+            t = t * torch.where(live, 1.0 - alpha, one)
+        img = img + t[..., None] * settings.bg
+    return img.permute(2, 0, 1)

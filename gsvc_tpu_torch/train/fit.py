@@ -439,6 +439,29 @@ class GOPFitter:
                     f"{new_cbf}" if s.copy_budget_factor else ""))
         return True
 
+    # -- model snapshots ---------------------------------------------------
+    def save_snapshot(self, out_dir: str):
+        """``point_cloud.ply`` (the first ``n_active`` anchors,
+        ``utils/ply.py``) and ``networks.pkl`` (the networks as the JAX
+        package pickles them: a nested dict of float32 numpy arrays under
+        the NetParams keys) into ``out_dir``."""
+        import pathlib
+        import pickle
+
+        from gsvc_tpu_torch.models.gaussians import map_tree
+        from gsvc_tpu_torch.utils.ply import save_gaussian_ply
+
+        p = pathlib.Path(out_dir)
+        p.mkdir(parents=True, exist_ok=True)
+        n = int(self.state.n_active)
+        anchors = {f: getattr(self.state.anchors, f)[:n].detach().cpu()
+                   .numpy() for f in AnchorState._fields}
+        save_gaussian_ply(str(p / "point_cloud.ply"), anchors)
+        nets = map_tree(lambda t: t.detach().cpu().numpy(),
+                        self.state.nets._asdict())
+        with open(p / "networks.pkl", "wb") as f:
+            pickle.dump(nets, f)
+
     # -- main loop ---------------------------------------------------------
     def fit(self, iterations: Optional[int] = None,
             eval_every: int = 0, log_every: int = 100,

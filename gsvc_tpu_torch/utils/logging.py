@@ -1,13 +1,16 @@
-"""Logging bootstrap of the CLIs (port of ``setup_logging``,
-gsvc_tpu/utils/logging.py:32): stdlib logging to stderr and to a log file
-in the output directory."""
+"""Logging bootstrap and metrics sink of the CLIs (port of
+gsvc_tpu/utils/logging.py: ``setup_logging``, ``MetricsWriter``,
+``dump_config``): stdlib logging to stderr and to a log file in the output
+directory, scalars as JSON lines, the resolved config as YAML."""
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import pathlib
 import sys
+import time
 from typing import Optional
 
 
@@ -45,3 +48,32 @@ def setup_logging(model_path: Optional[str] = None,
             fh.setFormatter(fmt)
             logger.addHandler(fh)
     return logger
+
+
+class MetricsWriter:
+    """Append-only JSONL scalar sink: one ``{"step", "time", **scalars}``
+    line a ``write``, each scalar with ``__float__`` as a float."""
+
+    def __init__(self, model_path: str, name: str = "metrics.jsonl"):
+        p = pathlib.Path(model_path)
+        p.mkdir(parents=True, exist_ok=True)
+        self._f = open(p / name, "a")
+
+    def write(self, step: int, **scalars):
+        rec = {"step": step, "time": time.time()}
+        for k, v in scalars.items():
+            rec[k] = float(v) if hasattr(v, "__float__") else v
+        self._f.write(json.dumps(rec) + "\n")
+        self._f.flush()
+
+    def close(self):
+        self._f.close()
+
+
+def dump_config(cfg, model_path: str):
+    """Write the resolved config to ``model_path/cfg_args.yaml``."""
+    from gsvc_tpu_torch.config import save_config
+
+    p = pathlib.Path(model_path)
+    p.mkdir(parents=True, exist_ok=True)
+    save_config(cfg, str(p / "cfg_args.yaml"))

@@ -303,7 +303,7 @@ def test_codec_eval_matches_jax(tmp_path):
     pres = _codec_eval(
         pstate, cfg_p, make_raster_settings(cfg_p, 24, 40, **kw), 192, 192,
         zs, pd, Config(model=ModelConfig(**TINY_MC)), str(tmp_path / "p"),
-        lambda *a: None, eval_stride=2)
+        None, lambda *a: None, eval_stride=2)
     assert set(pres) == set(jres)
     assert pres["bpp"] == jres["bpp"] > 0
     assert pres["size_mb"] == jres["size_mb"]

@@ -1023,3 +1023,171 @@ def test_seed_gives_the_same_networks_on_cpu_and_card():
     assert len(leaves[0]) == len(leaves[1]) > 8
     for a, b in zip(*leaves):
         assert torch.equal(a.cpu(), b)
+
+
+# ---------------------------------------------------------------------------
+# LPIPS on the card, and the kernels against the dense per-pixel oracle
+# ---------------------------------------------------------------------------
+
+# torchvision VGG16 conv widths (the LPIPS exporter's shapes)
+_VGG16_CHANNELS = (64, 64, 128, 128, 256, 256, 256,
+                   512, 512, 512, 512, 512, 512)
+
+
+def _full_width_lpips_weights(seed=0):
+    """Full-width VGG16 + linear-head weights in the exporter's schema."""
+    from gsvc_tpu_torch.metrics.lpips import _SLICES, _VGG_CONVS
+
+    rng = np.random.default_rng(seed)
+    out, in_ch = {}, 3
+    for ci, conv_idx in enumerate(_VGG_CONVS):
+        oc = _VGG16_CHANNELS[ci]
+        out[f"features.{conv_idx}.weight"] = torch.from_numpy(rng.normal(
+            0, np.sqrt(2.0 / (in_ch * 9)), (oc, in_ch, 3, 3)).astype(
+                np.float32))
+        out[f"features.{conv_idx}.bias"] = torch.zeros(oc)
+        in_ch = oc
+    for k, upto in enumerate(_SLICES):
+        c = _VGG16_CHANNELS[upto - 1]
+        out[f"lin{k}.weight"] = torch.from_numpy(
+            rng.uniform(0.5, 1.5, (1, c, 1, 1)).astype(np.float32) / c)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["proxy", "full"])
+def test_lpips_on_the_card_matches_cpu(kind):
+    """LPIPS on the card equals the CPU's to rel 1e-6 with cuDNN's TF32
+    switch at PyTorch's default (on): ``lpips`` turns it off around its
+    convolutions and leaves the process flag as it was.  (float32 on both
+    sides differs by ~1e-7 relative; TF32 convolutions move the value by
+    ~1e-5, which a 1e-4 tolerance would not catch.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from gsvc_tpu_torch.metrics.lpips import lpips, proxy_lpips_weights
+
+    assert torch.backends.cudnn.allow_tf32, "PyTorch's default"
+    w = proxy_lpips_weights() if kind == "proxy" \
+        else _full_width_lpips_weights()
+    rng = np.random.default_rng(4)
+    a = rng.random((144, 208, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.08, a.shape), 0, 1).astype(np.float32)
+    want = float(lpips(w, a, b))
+    got = lpips({k: v.cuda() for k, v in w.items()}, torch.from_numpy(a)
+                .cuda(), torch.from_numpy(b).cuda())
+    assert got.is_cuda and torch.backends.cudnn.allow_tf32
+    assert float(got) == pytest.approx(want, rel=1e-6)
+
+
+def _visible_fitter(width, device="cuda"):
+    """A GOPFitter of the tiny model on three seeded 128 x ``width`` frames
+    at the training tile shape (8x128, cap 1024, chunk 128), its opacity
+    head's output bias set to 0.8 so that gaussians show, and its z bounds
+    widened so that no gaussian is clamped onto a bound: clamped ones share
+    a depth, and the flip view's composite order of such a tie (the
+    forward order reversed) is not the dense reference's (by index)."""
+    from gsvc_tpu_torch.config import (
+        Config, ModelConfig, OptimizationConfig, PipelineConfig,
+    )
+    from gsvc_tpu_torch.framecube.frame import FrameCubeDataset
+    from gsvc_tpu_torch.train.fit import GOPFitter
+
+    cfg = Config(
+        model=ModelConfig(anchor_feature_dim=8, n_offsets=4, threshold=0.3,
+                          time_multi_res=4, offset_multi_res=4, log2=6,
+                          log2_2D=7, grid_feature_dim=2,
+                          resolutions_list=(6, 10),
+                          resolutions_list_2D=(12, 20)),
+        pipeline=PipelineConfig(tile_h=8, tile_w=128, visible_capacity=1024,
+                                gaussian_chunk=128),
+        optimization=OptimizationConfig(init_anchor_num=300))
+    frames = np.random.default_rng(1).integers(0, 256, (3, 128, width, 3),
+                                               dtype=np.uint8)
+    fitter = GOPFitter(cfg, FrameCubeDataset(images=frames), seed=3,
+                       device=device)
+    fitter.state.nets.mlp_opacity["out"]["b"].fill_(0.8)
+    fitter.state.x_bound_min[..., 2] = -1.0
+    fitter.state.x_bound_max[..., 2] = 1.0
+    return fitter
+
+
+def _dense(fitter, gss, frame_z, flip):
+    from gsvc_tpu_torch.render.splat import rasterize_dense_reference
+
+    ds = fitter.dataset
+    return rasterize_dense_reference(
+        gss.xyz, gss.color, gss.opacity, gss.scaling, gss.rot, gss.valid,
+        frame_z, ds.x_min, ds.y_min, ds.scale, fitter.settings, flip=flip)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [256, 250])
+def test_frame_renders_match_the_dense_reference(width):
+    """``render_frame(..., rasterizer="pallas")`` (B5f, forward and flip
+    view) and, at the tile-aligned width, the forward view of
+    ``render_frame_views`` (B1) against ``rasterize_dense_reference`` on
+    the card, which composites every pixel with no binning, capacity or
+    chunk: 2 T_EPS.  (B1's flip view takes its x means from the forward
+    view's, (W - 1) - x, one rounding away from the flip projection's, so
+    at the alpha cliff it differs from this oracle by up to T/255; the
+    tests above hold it to B1's plain version.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from gsvc_tpu_torch.models.gaussians import GenerateMode
+    from gsvc_tpu_torch.render.batched import render_frame_views
+    from gsvc_tpu_torch.render.pipeline import render_frame
+
+    fitter = _visible_fitter(width)
+    ds, s = fitter.dataset, fitter.settings
+    geom = (ds.x_min, ds.y_min, ds.scale, s, fitter.window_cap)
+    for fz in (float(fitter.frame_zs[0]), float(fitter.frame_zs[1])):
+        with torch.no_grad():
+            for flip in (False, True):
+                b5f = tile.tile_forward.launches
+                r = render_frame(fitter.state, fitter.gcfg, fz, *geom,
+                                 GenerateMode.FULL_PRECISION, flip=flip,
+                                 rasterizer="pallas")
+                assert tile.tile_forward.launches == b5f + 1
+                assert int(r.overflow) == 0 and int(r.num_rendered) > 1000
+                ref = _dense(fitter, r.gaussians, fz, flip)
+                assert float(ref.std()) > 0.05
+                torch.testing.assert_close(r.image, ref, atol=2 * T_EPS,
+                                           rtol=0)
+            if width % s.tile_w:
+                continue
+            b1 = mirror.mirror_forward.launches
+            _, images, _, aux = render_frame_views(
+                fitter.state, fitter.gcfg, fz, *geom,
+                GenerateMode.FULL_PRECISION, inference=True)
+            assert mirror.mirror_forward.launches == b1 + 1
+            assert int(aux[4]) == 0
+            torch.testing.assert_close(images[0],
+                                       _dense(fitter, aux[0], fz, False),
+                                       atol=2 * T_EPS, rtol=0)
+
+
+@pytest.mark.cuda
+def test_mirror_decode_launches_b1_once_per_frame(monkeypatch):
+    """``GSVC_DECODE=mirror``: ``evaluate_video`` composites each frame
+    with one B1 launch (both views) and never B4; ``bidir`` the reverse."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from gsvc_tpu_torch.models.gaussians import GenerateMode
+    from gsvc_tpu_torch.report import evaluate_video
+
+    fitter = _visible_fitter(256)
+    ds = fitter.dataset
+    monkeypatch.delenv("GSVC_RASTERIZER", raising=False)
+    got = {}
+    for kind in ("mirror", "bidir"):
+        monkeypatch.setenv("GSVC_DECODE", kind)
+        b1, b4 = mirror.mirror_forward.launches, \
+            bidir.bidir_composite_attrs.launches
+        ev = evaluate_video(fitter.state, fitter.gcfg, fitter.settings,
+                            fitter.window_cap, fitter.frame_zs, ds.x_min,
+                            ds.y_min, ds.scale, gt_images=ds.images,
+                            mode=GenerateMode.FULL_PRECISION, decoded=False)
+        got[kind] = (mirror.mirror_forward.launches - b1,
+                     bidir.bidir_composite_attrs.launches - b4, ev["psnr"])
+    assert got["mirror"][:2] == (3, 0) and got["bidir"][:2] == (0, 3)
+    assert got["mirror"][2] == pytest.approx(got["bidir"][2], abs=0.01)

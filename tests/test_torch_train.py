@@ -466,11 +466,13 @@ def test_cli_encodes_on_cpu_with_jax_blocked(tmp_path, width):
 
 
 def test_cli_refuses_unported_options(tmp_path):
+    """Only multi-GPU fitting is left unported (ROADMAP A5); LPIPS,
+    --gop_size and --profile work (tests/test_torch_cli_surface.py)."""
     from gsvc_tpu_torch.cli.train import main
 
     with pytest.raises(NotImplementedError, match="mesh"):
         main(["--model_path", str(tmp_path), "--device", "cpu",
               "--skip_codec", "--mesh", "dp=2,sp=1"])
-    with pytest.raises(NotImplementedError, match="LPIPS"):
+    with pytest.raises(NotImplementedError, match="gop_parallel"):
         main(["--model_path", str(tmp_path), "--device", "cpu",
-              "--lpips_weights", "proxy"])
+              "--gop_size", "2", "--gop_parallel"])
