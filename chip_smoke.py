@@ -152,11 +152,34 @@
    against the decode's frame 0 (1 LSB).  ``cli.sweep`` is not run: it
    only loops over ``cli.train.main``, which this phase runs, and each
    point would cost another ~30 s host codec round trip.
-12. Prints the kernel table as one JSON line (``ms``: the wrapper's
+12. Multi-rank phase (``multi_rank_phase``, ``parallel/spmd.py``): its
+   ranks share the card over gloo, so it shows that the path is right at
+   full width, not multi-GPU speed.  (a) Frame 300's forward and flipped
+   views of the training phase's fitted state, one z-slab a rank (4
+   spawned ranks as 2 x 2, i.e. sp = 2, and as 1 x 4, where
+   ``neighbors=1`` takes the ppermute rounds staged through the host),
+   ``combine_slab_renders`` with and without ``neighbors`` against the
+   single-rank ``render_frame`` at 2e-4, the branches within 1e-6; the
+   same for the frame at the slabs' middle boundary, whose distance from
+   the single-rank render is printed, not gated;
+   (b) ``cli.train.main --mesh dp=2,sp=2`` with the codec on the
+   whole-video phase's GOP 0 (8 frames, the fixture's full model, the
+   12-step schedule), on 4 ranks that the smoke spawns inside a gloo group
+   on cuda:0 (the CLI's use-the-group path): per step and rank B1 and B2
+   once, B3f/B3b once an entropy step, no other composite; B4 once per
+   decoded frame on rank 0 only; a densify epoch, the capacity a multiple
+   of 2, equal nets on all ranks, bpp > 0 and a finite decoded PSNR; the
+   mesh checkpoint in a single-GPU ``GOPFitter`` evaluates frame 0 to the
+   mesh fitter's PSNR exactly; per rank the peak memory, the median step
+   and the collective milliseconds a step; (c) ``cli.train.main
+   --gop_size 8 --gop_parallel`` on the 16 frames through the CLI's own
+   spawner (2 ranks): every ``gop_*`` artifact of the sequential run, the
+   summary's gops and mesh, its wall beside the sequential run's.
+13. Prints the kernel table as one JSON line (``ms``: the wrapper's
    call, 20 back to back under CUDA events; ``kernel_ms``, B3f, B3b, B4,
    B5f, B5b, B6f and B6b: the kernel alone; ``launches``: the sum over
-   the paths that were counted, each reset before and read after), then
-   the result line.
+   the paths that were counted, each reset before and read after; the
+   multi-rank phase's summed over its ranks), then the result line.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 Frames are written nowhere; the checkpoint goes to a temporary directory.
@@ -1121,6 +1144,7 @@ def training_phase(dec, bidir, mirror, hk):
     hk.hashgrid_forward.launches = 0
     hk.hashgrid_backward.launches = 0
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     report = fitter.fit(iterations=TRAIN_STEPS, log_every=1,
                         eval_every=EVAL_EVERY, rate_log_every=TRAIN_STEPS,
@@ -1128,6 +1152,7 @@ def training_phase(dec, bidir, mirror, hk):
                         checkpoint_dir=ckpt_dir)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    FIT_PEAK["bytes"] = torch.cuda.max_memory_allocated()
     launches = (mirror.mirror_forward.launches,
                 mirror.mirror_backward.launches,
                 hk.hashgrid_forward.launches, hk.hashgrid_backward.launches)
@@ -2328,7 +2353,9 @@ def whole_video_phase(frames, hk, counters):
         the decode's frame 0 to 1 LSB.
 
     ``cli.sweep`` is not run: it only loops over ``cli.train.main``.
-    Returns the launches of (a) and (b) by kernel name."""
+    Returns the launches of (a) and (b) by kernel name, the phase's
+    directory (its files serve the multi-rank phase) and the wall seconds
+    of (a)."""
     import contextlib
     import io
 
@@ -2594,7 +2621,367 @@ def whole_video_phase(frames, hk, counters):
     wall = time.perf_counter() - t_phase
     log(f"whole-video phase: viewer frame 0 equals the decode's to "
         f"{int(np.abs(got - want).max())} LSB; phase wall {wall:.2f} s")
-    return {k: train_total[k] + dec_total[k] for k in names}
+    return ({k: train_total[k] + dec_total[k] for k in names}, root,
+            train_wall)
+
+
+# ---------------------------------------------------------------------------
+# The multi-rank phase: parallel/spmd.py on gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+MESH_SPEC = "dp=2,sp=2"
+MESH_WORLD = 4
+MESH_TIMEOUT = 600      # seconds for one spawn of ranks (and their group)
+SLAB_FRAME = 300
+SLAB_ATOL = 2e-4        # tests/test_parallel.py:67
+BRANCH_ATOL = 1e-6      # tests/test_parallel.py:133
+FIT_PEAK = {}           # the training phase's single-GPU fit: peak bytes
+
+
+def _spawn_ranks(fn, world: int, args: tuple, timeout: float = MESH_TIMEOUT):
+    """``fn(rank, world, port, *args)`` on ``world`` spawned processes;
+    a rank that raises fails the phase, and ranks past ``timeout``
+    seconds are killed and fail it."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.start_processes(fn, args=(world, port) + args, nprocs=world,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError(f"ranks still running after {timeout} s")
+
+
+def _rank_group(rank: int, world: int, port: int):
+    """This spawned rank inside a gloo group on 127.0.0.1, on cuda:0."""
+    import datetime
+
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=MESH_TIMEOUT))
+    torch.cuda.set_device(0)
+
+
+def _slab_checks(rank: int, world: int, job: dict):
+    """The slab composite of the fitted state on this rank of the group:
+    frame SLAB_FRAME and the frame nearest the z of the anchor row at half
+    the capacity (where the slabs of sp = 2 and the middle ones of sp = 4
+    meet), forward and flipped views, one z-slab a rank (B5f), combined
+    over sp with and without ``neighbors``, at sp = 2 (mesh 2 x 2) and
+    sp = 4 (1 x 4); ``neighbors`` is the fitter's bound, min(sp - 1,
+    ceil(global window band / slab rows)), which takes the ppermute rounds
+    when it is below sp - 1.  Returns, on rank 0, each case's largest
+    difference from the single-rank render of the whole state and between
+    the branches, the combine's milliseconds and the host copies."""
+    from gsvc_tpu_torch.convert import state_from_numpy
+    from gsvc_tpu_torch.parallel import spmd
+    from gsvc_tpu_torch.render.pipeline import render_frame
+    from gsvc_tpu_torch.train.fit import compute_window_cap
+    from gsvc_tpu_torch.utils.checkpoint import read_checkpoint
+
+    state = state_from_numpy(read_checkpoint(job["ckpt"]), "cuda")
+    cap = state.anchors.anchor.shape[0]
+    zs = np.asarray(job["frame_zs"])
+    band = compute_window_cap(state.anchors.anchor[:, 2].cpu().numpy(),
+                              state.n_active, zs, job["gcfg"].threshold)
+    z_mid = float(state.anchors.anchor[cap // 2, 2])
+    res = {}
+    for f in sorted({SLAB_FRAME, int(np.argmin(np.abs(zs - z_mid)))}):
+        args = (float(zs[f]), *job["geom"], job["settings"])
+        ref = {flip: render_frame(state, job["gcfg"], *args,
+                                  job["window_cap"], flip=flip).image
+               for flip in (False, True)} if rank == 0 else {}
+        for n_sp in (2, 4):
+            mesh = spmd.make_mesh(world // n_sp, n_sp, "cuda:0")
+            local = spmd.shard_model_state(state, mesh)
+            wc = min(job["window_cap"], cap // n_sp)
+            bound = min(n_sp - 1, -(-band // (cap // n_sp)))
+            for flip in (False, True):
+                r = render_frame(local, job["gcfg"], *args, wc, flip=flip)
+                imgs, ms = {}, {}
+                for nb in (None, bound):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    imgs[nb] = spmd.combine_slab_renders(
+                        r.image, r.transmittance, flip,
+                        job["settings"].bg, mesh, neighbors=nb)[0]
+                    torch.cuda.synchronize()
+                    ms[nb] = (time.perf_counter() - t0) * 1e3
+                if rank == 0:
+                    diff = (imgs[None] - ref[flip]).abs()
+                    res[(f, n_sp, flip)] = {
+                        "err": float(diff.max()), "neighbors": bound,
+                        "err_nb": float((imgs[bound] - ref[flip]).abs()
+                                        .max()),
+                        "branch": float((imgs[bound] - imgs[None]).abs()
+                                        .max()),
+                        "over": int((diff > SLAB_ATOL).sum()),
+                        "ms": ms[None], "ms_nb": ms[bound], "band": band,
+                        "host_copies": mesh.stats.host_copies}
+    del state
+    torch.cuda.empty_cache()
+    return res if rank == 0 else None
+
+
+def _kernel_counters():
+    from gsvc_tpu_torch.ops import hashgrid_kernels as hk
+    from gsvc_tpu_torch.render import bidir, mirror, stream, tile
+
+    return (("B1", mirror.mirror_forward), ("B2", mirror.mirror_backward),
+            ("B3f", hk.hashgrid_forward), ("B3b", hk.hashgrid_backward),
+            ("B4", bidir.bidir_composite_attrs), ("B5f", tile.tile_forward),
+            ("B5b", tile.tile_backward), ("B6f", stream.stream_forward),
+            ("B6b", stream.stream_backward))
+
+
+def _mesh_rank(rank, world, port, argv, out_dir, slab_job):
+    """On this rank of a gloo group that the smoke initialised: the slab
+    composite checks (``_slab_checks``; rank 0 writes ``slab.pkl``), then
+    ``cli.train.main(argv)`` (``--mesh``: the CLI's use-the-group path).
+    Writes ``rank<r>.pkl``: its launches per step and in all, each step's
+    milliseconds and collective milliseconds (host clock, synchronised),
+    its peak memory, the nets' digest, the capacity, and the mesh
+    fitter's FULL_PRECISION evaluation of frame 0."""
+    import hashlib
+    import pickle
+
+    import torch.distributed as dist
+
+    from gsvc_tpu_torch.cli import train as cli_train
+    from gsvc_tpu_torch.models.gaussians import GenerateMode
+    from gsvc_tpu_torch.train.fit import GOPFitter
+    from gsvc_tpu_torch.train.optim import tree_leaves
+
+    _rank_group(rank, world, port)
+    t0 = time.perf_counter()
+    slab = _slab_checks(rank, world, slab_job)
+    if slab is not None:
+        slab["wall"] = time.perf_counter() - t0
+        with open(pathlib.Path(out_dir) / "slab.pkl", "wb") as f:
+            pickle.dump(slab, f)
+    counters = _kernel_counters()
+
+    def counts():
+        return {n: c.launches for n, c in counters}
+
+    steps, box = [], {}
+    orig = GOPFitter._run_single
+
+    def run_single(self, it, n):
+        box["fitter"] = self
+        c0, s0 = counts(), self.mesh.stats.seconds
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = orig(self, it, n)
+        torch.cuda.synchronize()
+        c1 = counts()
+        steps.append({"it": it, "ms": (time.perf_counter() - t0) * 1e3,
+                      "coll_ms": (self.mesh.stats.seconds - s0) * 1e3,
+                      "launches": {k: c1[k] - c0[k] for k in c1}})
+        return m
+
+    GOPFitter._run_single = run_single
+    try:
+        for _, c in counters:
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cli_train.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        total = counts()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        GOPFitter._run_single = orig
+    fitter = box["fitter"]
+    ev0 = fitter.evaluate(GenerateMode.FULL_PRECISION, frames=[0])["psnr"]
+    digest = hashlib.sha256(b"".join(
+        t.detach().cpu().numpy().tobytes()
+        for t in tree_leaves(fitter.state.nets))).hexdigest()
+    out = {"rank": rank, "steps": steps, "total": total, "peak": peak,
+           "wall": wall, "digest": digest, "capacity": fitter.capacity,
+           "window_cap": fitter.window_cap, "eval0": ev0, "res": res,
+           "stats": fitter.mesh.stats.as_dict(),
+           "local_rows": fitter.state.anchors.anchor.shape[0]}
+    with open(pathlib.Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+def multi_rank_phase(root: pathlib.Path, seq_wall: float, slab_job: dict):
+    """The multi-GPU path (``parallel/spmd.py``) on the card, its ranks
+    sharing it over gloo (one card cannot show multi-GPU speed: every
+    time here is of ranks sharing one card), on the whole-video phase's
+    files (``root``: 16 decoded 1920x1080 PNGs with flows, GOP 0's 8, the
+    fixture's full model with the 12-step schedule):
+
+    (1) the slab composite (``_slab_checks``, on the ranks of (2) before
+        the fit): frame SLAB_FRAME combined within SLAB_ATOL of the
+        single-rank render, and for it and for the frame at the slabs'
+        middle boundary the two branches within BRANCH_ATOL of each other,
+        at sp = 2 and sp = 4 (where ``neighbors`` = 1 takes the ppermute
+        rounds, staged through the host over gloo); the boundary frame's
+        distance from the single-rank render is printed, not gated (the
+        decomposition is exact only for depth-disjoint slabs);
+    (2) ``cli.train.main --mesh dp=2,sp=2`` on GOP 0 with the codec, on 4
+        ranks that the smoke spawns inside a gloo group on cuda:0
+        (``_mesh_rank``): B1 and B2 once a step on every rank, B3f/B3b
+        once an entropy step and never before, no B4, B5 or B6 in a step,
+        B4 once per evaluated frame on rank 0 and never elsewhere; a
+        densify epoch, the capacity a multiple of sp, the nets' digests
+        equal on all ranks, results.json with bpp > 0 and a finite
+        decoded PSNR; ``chkpnt_final.pkl`` loaded into a single-GPU
+        ``GOPFitter`` evaluates frame 0 (FULL_PRECISION) to the mesh
+        fitter's PSNR exactly.  Per rank: peak memory, median step,
+        collective ms a step;
+    (3) ``cli.train.main --gop_size 8 --gop_parallel`` on the 16 frames
+        through the CLI's own spawner (2 ranks): every ``gop_*`` file of
+        the sequential run, the summary's gops == 2 and mesh {dp: 2, sp:
+        1}; its wall beside the sequential run's (``seq_wall``).
+
+    Returns the launches of (2) summed over the ranks, by kernel."""
+    import pickle
+
+    from gsvc_tpu_torch.cli import train as cli_train
+    from gsvc_tpu_torch.config import load_config
+    from gsvc_tpu_torch.framecube.frame import FrameCubeDataset
+    from gsvc_tpu_torch.models.gaussians import GenerateMode
+    from gsvc_tpu_torch.train.fit import GOPFitter
+    from gsvc_tpu_torch.utils.checkpoint import load_checkpoint, \
+        read_checkpoint
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    log(f"multi-rank phase (ranks sharing one card over gloo): the "
+        f"single-GPU fit's peak memory in the training phase "
+        f"{FIT_PEAK.get('bytes', 0) / 2**30:.2f} GiB (steps, 600-frame "
+        f"evaluations and densify epochs)")
+
+    # (1) and (2): the slab composite, then the mesh fit with the codec,
+    # on the same four ranks
+    out_mesh = root / "out_mesh"
+    ranks_dir = root / "mesh_ranks"
+    ranks_dir.mkdir()
+    argv = ["--source_path", str(root / "gop0/frames"), "--optical_path",
+            str(root / "gop0/flow"), "--model_path", str(out_mesh),
+            "--config_path", str(root / "cfg.yaml"), "--mesh", MESH_SPEC]
+    t0 = time.perf_counter()
+    _spawn_ranks(_mesh_rank, MESH_WORLD, (argv, str(ranks_dir), slab_job))
+    mesh_wall = time.perf_counter() - t0
+    with open(ranks_dir / "slab.pkl", "rb") as f:
+        slab = pickle.load(f)
+    for key, r in sorted((k, v) for k, v in slab.items() if k != "wall"):
+        f, n_sp, flip = key
+        gated = f == SLAB_FRAME
+        log(f"multi-rank phase: slab composite, frame {f} "
+            f"{'flipped' if flip else 'forward'} view, sp={n_sp}: max |"
+            f"combined - single-rank| {r['err']:.3e} (all-gather), "
+            f"{r['err_nb']:.3e} (neighbors={r['neighbors']}: global band "
+            f"{r['band']} rows), {r['over']} values past "
+            f"{SLAB_ATOL}{'' if gated else ' (not gated)'}; branches "
+            f"{r['branch']:.3e} apart; combine {r['ms']:.2f} / "
+            f"{r['ms_nb']:.2f} ms; host copies {r['host_copies']}")
+        if r["branch"] > BRANCH_ATOL or (gated and r["err"] > SLAB_ATOL):
+            raise AssertionError(f"slab composite {key}: {r}")
+    log(f"multi-rank phase: slab composite checks in {slab['wall']:.2f} s "
+        f"on the ranks")
+    ranks = []
+    for r in range(MESH_WORLD):
+        with open(ranks_dir / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    entropic = ("ENTROPY", "STE_ENTROPY")
+    for rk in ranks:
+        if len(rk["steps"]) != NARROW_STEPS:
+            raise AssertionError(f"rank {rk['rank']}: {len(rk['steps'])} "
+                                 f"steps")
+        for s in rk["steps"]:
+            c, ent = s["launches"], phase_of(s["it"], NARROW_PHASES) \
+                in entropic
+            if (c["B1"], c["B2"], c["B3f"], c["B3b"]) != (1, 1, int(ent),
+                                                         int(ent)) or any(
+                    c[k] for k in ("B4", "B5f", "B5b", "B6f", "B6b")):
+                raise AssertionError(f"rank {rk['rank']} step {s['it']}: "
+                                     f"launches {c}")
+        b4 = rk["total"]["B4"]
+        if (rk["rank"] == 0) != (b4 == WHOLE_GOP) or (
+                rk["rank"] and b4):
+            raise AssertionError(f"rank {rk['rank']}: B4 {b4} times")
+        ms = [s["ms"] for s in rk["steps"][1:]]
+        coll = [s["coll_ms"] for s in rk["steps"][1:]]
+        log(f"multi-rank phase: rank {rk['rank']} (ranks sharing one "
+            f"card): peak memory {rk['peak'] / 2**30:.2f} GiB, median step "
+            f"{np.median(ms):.1f} ms (steps 2-{NARROW_STEPS}: "
+            + ", ".join(f"{v:.0f}" for v in ms) + "), collectives "
+            f"{np.median(coll):.1f} ms a step (median), {rk['stats']}; "
+            f"slab rows {rk['local_rows']}, window_cap {rk['window_cap']}"
+            f"; launches in all {rk['total']}; main {rk['wall']:.2f} s")
+    if len({rk["digest"] for rk in ranks}) != 1:
+        raise AssertionError("the nets differ between ranks")
+    if len({rk["capacity"] for rk in ranks}) != 1 or \
+            ranks[0]["capacity"] % 2:
+        raise AssertionError(f"capacities {[r['capacity'] for r in ranks]}")
+    res = ranks[0]["res"]
+    log(f"multi-rank phase: cli.train.main --mesh {MESH_SPEC} in "
+        f"{mesh_wall:.2f} s wall (spawn included): {json.dumps(res)}")
+    if not (res["bpp"] > 0 and np.isfinite(res["decoded_psnr"])):
+        raise AssertionError(f"mesh results {res}")
+    text = (out_mesh / "output.log").read_text()
+    if "densify +" not in text or "backend gloo" not in text:
+        raise AssertionError("no densify epoch (or no backend line) in the "
+                             "mesh fit's log")
+    ck = read_checkpoint(str(out_mesh / "chkpnt_final.pkl"))
+    cfg = load_config(str(root / "cfg.yaml"))
+    single = GOPFitter(cfg, FrameCubeDataset(str(root / "gop0/frames")),
+                       seed=0, device="cuda")
+    load_checkpoint(str(out_mesh / "chkpnt_final.pkl"), single)
+    ev0 = single.evaluate(GenerateMode.FULL_PRECISION, frames=[0])["psnr"]
+    log(f"multi-rank phase: chkpnt_final.pkl (capacity {ck['capacity']}, "
+        f"{ck['n_active']} anchors) in a single-GPU GOPFitter: frame 0 "
+        f"PSNR {ev0!r} dB, the mesh fitter's {ranks[0]['eval0']!r}")
+    if ev0 != ranks[0]["eval0"] or ck["capacity"] % 2:
+        raise AssertionError("the mesh checkpoint does not evaluate alike "
+                             "in a single-GPU fitter")
+    del single
+    torch.cuda.empty_cache()
+
+    # (3) the GOP fan-out through the CLI's own spawner
+    t0 = time.perf_counter()
+    summary = cli_train.main([
+        "--source_path", str(root / "frames"), "--optical_path",
+        str(root / "flow"), "--model_path", str(root / "out_fan"),
+        "--config_path", str(root / "cfg.yaml"), "--gop_size",
+        str(WHOLE_GOP), "--gop_parallel"])
+    fan_wall = time.perf_counter() - t0
+    log(f"multi-rank phase: cli.train.main --gop_size {WHOLE_GOP} "
+        f"--gop_parallel (2 ranks sharing the card) in {fan_wall:.2f} s "
+        f"wall against {seq_wall:.2f} s for the sequential --gop_size "
+        f"{WHOLE_GOP} of the whole-video phase: {json.dumps(summary)}")
+    if summary["gops"] != 2 or summary["mesh"] != {"dp": 2, "sp": 1}:
+        raise AssertionError(f"fan-out summary {summary}")
+    for start, r in zip(range(0, WHOLE_FRAMES, WHOLE_GOP),
+                        summary["per_gop"]):
+        gop = root / "out_fan" / f"gop_{start:05d}"
+        for name in ("bitstreams", "results.json", "metrics.jsonl",
+                     "cfg_args.yaml", "chkpnt_final.pkl", "output.log",
+                     "point_cloud/final/point_cloud.ply",
+                     "point_cloud/final/networks.pkl"):
+            if not (gop / name).exists():
+                raise AssertionError(f"{gop} lacks {name}")
+        if not (r["bpp"] > 0 and np.isfinite(r["decoded_psnr"])):
+            raise AssertionError(f"{gop}: results {r}")
+    log(f"multi-rank phase: wall {time.perf_counter() - t_phase:.2f} s")
+    return {k: sum(rk["total"][k] for rk in ranks)
+            for k in ("B1", "B2", "B3f", "B3b", "B4")}
 
 
 # python3 chip_smoke.py --fit-study [index ...]: name, seed, fit steps,
@@ -2736,7 +3123,13 @@ def main() -> int:
     ckpt = pathlib.Path(tempfile.mkdtemp(prefix="gsvc_smoke_ckpt_")) \
         / "chkpnt_fitted.pkl"
     save_checkpoint(str(ckpt), fitter, TRAIN_STEPS)
-    del fitter
+    ds = fitter.dataset
+    slab_job = {"ckpt": str(ckpt), "gcfg": fitter.gcfg,
+                "settings": fitter.settings,
+                "geom": (ds.x_min, ds.y_min, ds.scale),
+                "frame_zs": fitter.frame_zs,
+                "window_cap": fitter.window_cap}
+    del fitter, ds
     torch.cuda.empty_cache()
     counters = (("B6f", stream.stream_forward),
                 ("B6b", stream.stream_backward),
@@ -2760,14 +3153,18 @@ def main() -> int:
                step_ms=stream_meds["FULL_PRECISION"]["B6b+scatter"])
     b5f, b5b, _, _ = narrow_phase(frames, bidir, mirror, tile, hk)
     torch.cuda.empty_cache()
-    whole = whole_video_phase(frames, hk, counters + (
-        ("B3f", hk.hashgrid_forward), ("B3b", hk.hashgrid_backward)))
-    # each path's launches: its count reset before it and read after
-    res["launches"] += whole["B4"]
-    b1["launches"] += whole["B1"]
-    b2["launches"] += whole["B2"]
-    b3_launches = (b3_launches[0] + whole["B3f"],
-                   b3_launches[1] + whole["B3b"])
+    whole, whole_root, seq_wall = whole_video_phase(
+        frames, hk, counters + (("B3f", hk.hashgrid_forward),
+                                ("B3b", hk.hashgrid_backward)))
+    torch.cuda.empty_cache()
+    multi = multi_rank_phase(whole_root, seq_wall, slab_job)
+    # each path's launches: its count reset before it and read after (the
+    # multi-rank phase's summed over its ranks)
+    res["launches"] += whole["B4"] + multi["B4"]
+    b1["launches"] += whole["B1"] + multi["B1"]
+    b2["launches"] += whole["B2"] + multi["B2"]
+    b3_launches = (b3_launches[0] + whole["B3f"] + multi["B3f"],
+                   b3_launches[1] + whole["B3b"] + multi["B3b"])
 
     table = {"kernels": [{
         "name": "bidir_composite_attrs",

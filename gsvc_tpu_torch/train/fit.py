@@ -1,6 +1,5 @@
 """GOP fitting: the host loop around the training step (port of
-gsvc_tpu/train/fit.py without a mesh; reference: pipeline/train.py:
-267-605).
+gsvc_tpu/train/fit.py; reference: pipeline/train.py:267-605).
 
 The host samples one frame pair per iteration (one ``rng.integers`` draw,
 as the JAX package's single-step path), feeds the learning rates and runs
@@ -21,6 +20,16 @@ Random numbers: the initial networks are drawn from a CPU
 ``torch.Generator(seed)`` and moved to the device, so a seed gives the
 same networks on every device; the per-step quantisation noise comes
 from a generator on the fit device (``self.generator``).
+
+With a ``mesh`` (``parallel/spmd.py``, one process a rank) the fit runs
+the SPMD step: this rank holds its z-slab of the anchors, every step
+draws one frame pair per dp group (``n_dp`` draws from ``self.rng``,
+the same on every rank, each rank taking its group's), the noise
+generator is seeded ``seed + dp index``, and the densify epochs gather
+the slabs, run the host epoch on every rank and re-shard.  Evaluation,
+the rate estimate, snapshots and checkpoints read ``gathered_state()``
+(the global z-ordered buffers); rank 0 renders and writes, and every
+rank reaches every collective.
 """
 
 from __future__ import annotations
@@ -85,8 +94,31 @@ class FitReport:
     evals: list = field(default_factory=list)    # {"iter", "psnr"}
 
 
+def write_snapshot(state, out_dir: str):
+    """``point_cloud.ply`` (the first ``n_active`` anchors,
+    ``utils/ply.py``) and ``networks.pkl`` (the networks as the JAX
+    package pickles them: a nested dict of float32 numpy arrays under the
+    NetParams keys) into ``out_dir``."""
+    import pathlib
+    import pickle
+
+    from gsvc_tpu_torch.models.gaussians import map_tree
+    from gsvc_tpu_torch.utils.ply import save_gaussian_ply
+
+    p = pathlib.Path(out_dir)
+    p.mkdir(parents=True, exist_ok=True)
+    n = int(state.n_active)
+    anchors = {f: getattr(state.anchors, f)[:n].detach().cpu().numpy()
+               for f in AnchorState._fields}
+    save_gaussian_ply(str(p / "point_cloud.ply"), anchors)
+    nets = map_tree(lambda t: t.detach().cpu().numpy(), state.nets._asdict())
+    with open(p / "networks.pkl", "wb") as f:
+        pickle.dump(nets, f)
+
+
 class GOPFitter:
-    """Fits one frame cube (= encodes one GOP) on one device.
+    """Fits one frame cube (= encodes one GOP) on one device, or as one
+    rank of a ``mesh`` (``parallel/spmd.py:make_mesh``).
 
     ``device`` defaults to ``cuda`` and raises without a card; ``cpu``
     runs the plain PyTorch versions of the kernels (the tests)."""
@@ -96,7 +128,7 @@ class GOPFitter:
 
     def __init__(self, cfg: Config, dataset: FrameCubeDataset,
                  seed: int = 0, log_fn: Optional[Callable] = None,
-                 device=None):
+                 device=None, mesh=None):
         self.cfg = cfg
         self.dataset = dataset
         self.device = resolve_device(device)
@@ -104,23 +136,26 @@ class GOPFitter:
         self.log = log_fn or (lambda *a, **k: None)
         self.seed = seed
         self.rng = np.random.default_rng(seed)
-        # per-step noise on the fit device; the initial networks come from
-        # a CPU generator (below), the same on every device
+        self.mesh = mesh
+        self.n_dp = mesh.size("dp") if mesh is not None else 1
+        self.n_sp = mesh.size("sp") if mesh is not None else 1
+        # per-step noise on the fit device, one generator a dp group; the
+        # initial networks come from a CPU generator (below), the same on
+        # every device and rank
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
+        self.generator.manual_seed(
+            seed + (mesh.dp_index if mesh is not None else 0))
         # "", "jnp", "pallas" and "pallas_train" train through kernels
         # B1/B2 at tile-aligned widths, "pallas_stream" through B6f/B6b
         # (with the compacted copy stream when copy_budget_factor > 0),
         # every name through B5f/B5b at other widths; others raise
         self.rasterizer = check_rasterizer(cfg.pipeline.rasterizer)
-        if cfg.pipeline.mesh_shape:
-            raise NotImplementedError("the port fits on one device; "
-                                      "pipeline.mesh_shape is not ported")
 
         opt = cfg.optimization
         pts = init_point_cloud(dataset.x_min, dataset.y_min, dataset.z_min,
                                n=opt.init_anchor_num, rng=self.rng)
-        self.capacity = _round_up(int(opt.init_anchor_num * 1.5), 1024)
+        self.capacity = _round_up(
+            _round_up(int(opt.init_anchor_num * 1.5), 1024), self.n_sp)
         self.state = init_model(torch.Generator().manual_seed(seed),
                                 self.gcfg, pts, self.capacity,
                                 voxel_size=cfg.model.voxel_size,
@@ -135,6 +170,13 @@ class GOPFitter:
         self.window_cap = compute_window_cap(
             self.state.anchors.anchor[:, 2].cpu().numpy(),
             self.state.n_active, self.frame_zs, self.gcfg.threshold)
+        if mesh is not None:
+            from gsvc_tpu_torch.parallel.spmd import shard_model_state
+
+            # under sp each rank windows its own z-slab
+            self.window_cap = min(self.window_cap,
+                                  self.capacity // self.n_sp)
+            self.state = shard_model_state(self.state, mesh)
 
         bg = 1.0 if cfg.model.white_background else 0.0
         self.settings = make_raster_settings(
@@ -150,8 +192,8 @@ class GOPFitter:
         self.schedules = build_schedules(opt, spatial_lr_scale=1.0,
                                          ste_binary=cfg.model.ste_binary)
         self.adam = adam_init((self.state.anchors, self.state.nets))
-        self.stats = init_stats(self.capacity, self.gcfg.n_offsets,
-                                self.device)
+        self.stats = init_stats(self.capacity // self.n_sp,
+                                self.gcfg.n_offsets, self.device)
         self.controller = TrainingController(opt)
         self._build_step()
         # optional per-step marker (``mark(name)``) for a timing breakdown
@@ -202,10 +244,40 @@ class GOPFitter:
             return voxel_size
         return float(np.median(mean_nn3_distance(pts.astype(np.float32))))
 
+    def gathered_state(self):
+        """The model state with the global z-ordered anchor buffers (one
+        all-gather of the slabs under a mesh; ``self.state`` without)."""
+        if self.mesh is None:
+            return self.state
+        from gsvc_tpu_torch.parallel.spmd import gather_slabs
+
+        return self.state._replace(anchors=AnchorState(
+            *gather_slabs(list(self.state.anchors), self.mesh)))
+
+    def _rank0(self) -> bool:
+        return self.mesh is None or self.mesh.rank == 0
+
     def _build_step(self):
         """The step closure over the current settings and window (the
         JAX package re-jits here; the port only rebuilds the closure)."""
         d = self.dataset
+        if self.mesh is not None:
+            from gsvc_tpu_torch.parallel.spmd import make_spmd_train_step
+
+            # the slab-overlap bound of the log-T exchange: the global
+            # (unclamped) window band says how many consecutive slabs a
+            # frame's window can intersect
+            z = self.gathered_state().anchors.anchor[:, 2].cpu().numpy()
+            global_band = compute_window_cap(
+                z, self.state.n_active, self.frame_zs, self.gcfg.threshold)
+            slab_rows = self.capacity // self.n_sp
+            neighbors = min(self.n_sp - 1, -(-global_band // slab_rows))
+            self.train_step = make_spmd_train_step(
+                self.gcfg, self.settings, self.window_cap,
+                self.cfg.optimization, width=d.width, height=d.height,
+                scale=d.scale, x_min=d.x_min, y_min=d.y_min, mesh=self.mesh,
+                rasterizer=self.rasterizer, overlap_neighbors=neighbors)
+            return
         self.train_step = make_step_body(
             self.gcfg, self.settings, self.window_cap,
             self.cfg.optimization, width=d.width, height=d.height,
@@ -221,6 +293,8 @@ class GOPFitter:
         current anchor density (hysteresis avoids rebuild thrash)."""
         new_window = compute_window_cap(z_sorted, n_active, self.frame_zs,
                                         self.gcfg.threshold)
+        if self.mesh is not None:
+            new_window = min(new_window, self.capacity // self.n_sp)
         if new_window > self.window_cap or \
                 new_window <= self.window_cap // 2:
             old = self.window_cap
@@ -263,9 +337,41 @@ class GOPFitter:
     def _densify(self):
         """One densify epoch (grow, prune, z re-sort, re-pad), then the
         window and the step are rebuilt if they changed."""
+        if self.mesh is not None:
+            return self._densify_spmd()
         if self.cfg.pipeline.device_densify:
             return self._densify_device()
         return self._densify_host()
+
+    def _densify_spmd(self):
+        """The epoch under a mesh (``spmd_densify_epoch``): the slabs are
+        gathered, every rank runs the host epoch on the same arrays with
+        the same generator, and the result is re-padded to a capacity
+        divisible by sp and re-sharded.  The one-time threshold
+        calibration reads the gathered statistics."""
+        from gsvc_tpu_torch.parallel.spmd import (
+            gather_slabs, spmd_densify_epoch,
+        )
+
+        opt = self.cfg.optimization
+        if opt.auto_densify_threshold and not getattr(
+                self, "_threshold_calibrated", False):
+            n, k = self.state.n_active, self.gcfg.n_offsets
+            oga, od = gather_slabs([self.stats.offset_gradient_accum,
+                                    self.stats.offset_denom], self.mesh)
+            self._maybe_calibrate({
+                "offset_gradient_accum": oga[:n * k].cpu().numpy(),
+                "offset_denom": od[:n * k].cpu().numpy()})
+        self.state, self.adam, self.stats, res, cap = spmd_densify_epoch(
+            self.state, self.adam, self.stats, self.mesh, self.cfg.model,
+            opt, self.voxel_size, self.rng, self.gcfg.n_offsets,
+            capacity=self.capacity)
+        rebuild = cap != self.capacity
+        self.capacity = cap
+        z = self.gathered_state().anchors.anchor[:, 2].cpu().numpy()
+        if self._maybe_resize_window(z, res.n_active) or rebuild:
+            self._build_step()
+        return res
 
     def _densify_host(self):
         """The host-surgery path: the live prefix of every anchor field,
@@ -441,26 +547,11 @@ class GOPFitter:
 
     # -- model snapshots ---------------------------------------------------
     def save_snapshot(self, out_dir: str):
-        """``point_cloud.ply`` (the first ``n_active`` anchors,
-        ``utils/ply.py``) and ``networks.pkl`` (the networks as the JAX
-        package pickles them: a nested dict of float32 numpy arrays under
-        the NetParams keys) into ``out_dir``."""
-        import pathlib
-        import pickle
-
-        from gsvc_tpu_torch.models.gaussians import map_tree
-        from gsvc_tpu_torch.utils.ply import save_gaussian_ply
-
-        p = pathlib.Path(out_dir)
-        p.mkdir(parents=True, exist_ok=True)
-        n = int(self.state.n_active)
-        anchors = {f: getattr(self.state.anchors, f)[:n].detach().cpu()
-                   .numpy() for f in AnchorState._fields}
-        save_gaussian_ply(str(p / "point_cloud.ply"), anchors)
-        nets = map_tree(lambda t: t.detach().cpu().numpy(),
-                        self.state.nets._asdict())
-        with open(p / "networks.pkl", "wb") as f:
-            pickle.dump(nets, f)
+        """``write_snapshot`` of the (gathered) state; under a mesh every
+        rank gathers and rank 0 writes."""
+        state = self.gathered_state()
+        if self._rank0():
+            write_snapshot(state, out_dir)
 
     # -- main loop ---------------------------------------------------------
     def fit(self, iterations: Optional[int] = None,
@@ -542,19 +633,7 @@ class GOPFitter:
             # iterations of the entropy phases, pipeline/train.py:547)
             if (rate_log_every and self.controller.entropy_constrained
                     and it % rate_log_every == 0):
-                from gsvc_tpu_torch.codec.estimate import estimate_final_bits
-
-                est = estimate_final_bits(self.state, self.gcfg)
-                mb = 8 * 2 ** 20
-                self.log(
-                    f"iter {it}: est bits MB "
-                    f"anchor={est.bit_anchor / mb:.3f} "
-                    f"feat={est.bit_feat / mb:.3f} "
-                    f"scaling={est.bit_scaling / mb:.3f} "
-                    f"offsets={est.bit_offsets / mb:.3f} "
-                    f"hash={est.bit_hash / mb:.3f} "
-                    f"masks={est.bit_masks / mb:.3f} "
-                    f"mlp={est.bit_mlp / mb:.3f} total={est.total / mb:.3f}")
+                self._log_rate_estimate(it)
 
             self.controller.step()
             it += 1
@@ -567,13 +646,39 @@ class GOPFitter:
         report.n_active = self.state.n_active
         return report
 
+    def _log_rate_estimate(self, it: int):
+        """The estimated whole-model rate (the reference logs it every
+        100 iterations of the entropy phases, pipeline/train.py:547); on
+        rank 0 of a mesh, from the gathered state."""
+        from gsvc_tpu_torch.codec.estimate import estimate_final_bits
+
+        state = self.gathered_state()
+        if not self._rank0():
+            return
+        est = estimate_final_bits(state, self.gcfg)
+        mb = 8 * 2 ** 20
+        self.log(f"iter {it}: est bits MB "
+                 f"anchor={est.bit_anchor / mb:.3f} "
+                 f"feat={est.bit_feat / mb:.3f} "
+                 f"scaling={est.bit_scaling / mb:.3f} "
+                 f"offsets={est.bit_offsets / mb:.3f} "
+                 f"hash={est.bit_hash / mb:.3f} "
+                 f"masks={est.bit_masks / mb:.3f} "
+                 f"mlp={est.bit_mlp / mb:.3f} total={est.total / mb:.3f}")
+
     def _run_single(self, it: int, n_frames: int):
         """One iteration: draw the frame pair, run the step."""
         mode = self.controller.render_mode
         if mode is None:  # past the schedule (GenerateMode 0 is falsy)
             mode = GenerateMode.STE_ENTROPY
         do_stats = self.controller.gaussian_statis
-        fidx = int(self.rng.integers(0, max(n_frames - 1, 1)))
+        if self.mesh is not None:
+            # one different frame pair per dp group, drawn alike on every
+            # rank; this rank takes its group's
+            fidx = [int(self.rng.integers(0, max(n_frames - 1, 1)))
+                    for _ in range(self.n_dp)][self.mesh.dp_index]
+        else:
+            fidx = int(self.rng.integers(0, max(n_frames - 1, 1)))
         f2 = min(fidx + 1, n_frames - 1)
         fi = min(fidx, self.flows[0].shape[0] - 1)
         self.state, self.adam, self.stats, metrics = self.train_step(
@@ -591,18 +696,33 @@ class GOPFitter:
         """Mean PSNR of the fwd/flip-averaged frames (kernel B4; B5f at a
         width that is not a multiple of ``tile_w``).  The
         noise-quantised phases are evaluated without noise: QUANTIZED_NOISE
-        in FULL_PRECISION, ENTROPY with STE rounding (STE_ENTROPY)."""
+        in FULL_PRECISION, ENTROPY with STE rounding (STE_ENTROPY).  Under
+        a mesh every rank gathers the state, rank 0 renders, and every
+        rank returns its result."""
         if mode == GenerateMode.QUANTIZED_NOISE:
             mode = GenerateMode.FULL_PRECISION
         elif mode == GenerateMode.ENTROPY:
             mode = GenerateMode.STE_ENTROPY
         d = self.dataset
+        state = self.gathered_state()
+        if not self._rank0():
+            return _broadcast_result(None)
         idxs = frames if frames is not None else range(d.num_frames)
         vals = []
         for i in idxs:
             img, _, _ = render_frame_bidir(
-                self.state, self.gcfg, float(self.frame_zs[i]), d.x_min,
+                state, self.gcfg, float(self.frame_zs[i]), d.x_min,
                 d.y_min, d.scale, self.settings, self.window_cap, mode=mode,
                 decoded=decoded)
             vals.append(float(psnr(img, gt_f32(self.images[i]))))
-        return {"psnr": float(np.mean(vals)), "per_frame": vals}
+        out = {"psnr": float(np.mean(vals)), "per_frame": vals}
+        return out if self.mesh is None else _broadcast_result(out)
+
+
+def _broadcast_result(obj):
+    """Rank 0's ``obj`` on every rank of the default process group."""
+    import torch.distributed as dist
+
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]

@@ -12,6 +12,11 @@ generator state only loads into a generator of the same device type (a
 CUDA state is 16 bytes, a CPU state 5,056), so on a mismatch the loader
 reseeds the noise generator from (seed, iteration) and logs it.
 Loading reads numpy arrays and plain Python values only.
+
+Under a mesh (``GOPFitter(mesh=...)``) ``save_checkpoint`` gathers the
+z-slabs, every rank taking part, and rank 0 writes the same file a
+single-GPU fit writes; ``load_checkpoint`` into a mesh fitter re-shards
+it.  So a mesh checkpoint loads into a single-GPU fitter and back.
 """
 
 from __future__ import annotations
@@ -42,23 +47,30 @@ def prng_key(seed: int) -> np.ndarray:
 
 
 def save_checkpoint(path: str, fitter, iteration: int) -> None:
-    """Capture a GOPFitter's full training state."""
+    """Capture a GOPFitter's full training state (under a mesh: gathered
+    on every rank, written by rank 0)."""
+    state, adam, stats = fitter.state, fitter.adam, fitter.stats
+    mesh = fitter.mesh
+    if mesh is not None:
+        from gsvc_tpu_torch.parallel.spmd import gather_training_state
+
+        state, adam, stats = gather_training_state(state, adam, stats, mesh)
+        if mesh.rank != 0:
+            return
     payload = {
         "iteration": iteration,
         "capacity": fitter.capacity,
         "window_cap": fitter.window_cap,
         "voxel_size": fitter.voxel_size,
-        "anchors": _to_host(fitter.state.anchors._asdict()),
-        "nets": _to_host(fitter.state.nets._asdict()),
-        "n_active": int(fitter.state.n_active),
-        "x_bound_min": fitter.state.x_bound_min.cpu().numpy(),
-        "x_bound_max": fitter.state.x_bound_max.cpu().numpy(),
-        "adam_m": _to_host((fitter.adam.m[0]._asdict(),
-                            fitter.adam.m[1]._asdict())),
-        "adam_v": _to_host((fitter.adam.v[0]._asdict(),
-                            fitter.adam.v[1]._asdict())),
-        "adam_step": int(fitter.adam.step),
-        "stats": _to_host(fitter.stats._asdict()),
+        "anchors": _to_host(state.anchors._asdict()),
+        "nets": _to_host(state.nets._asdict()),
+        "n_active": int(state.n_active),
+        "x_bound_min": state.x_bound_min.cpu().numpy(),
+        "x_bound_max": state.x_bound_max.cpu().numpy(),
+        "adam_m": _to_host((adam.m[0]._asdict(), adam.m[1]._asdict())),
+        "adam_v": _to_host((adam.v[0]._asdict(), adam.v[1]._asdict())),
+        "adam_step": int(adam.step),
+        "stats": _to_host(stats._asdict()),
         "controller_iteration": fitter.controller.current_iteration,
         "np_rng": fitter.rng.bit_generator.state,
         "jax_key": prng_key(fitter.seed),
@@ -122,18 +134,37 @@ def _restore_generator(fitter, p: dict) -> None:
 
 def load_checkpoint(path: str, fitter) -> int:
     """Restore into an already-constructed GOPFitter (same config and
-    dataset), from a file of either package.  Returns the iteration to
-    resume from."""
+    dataset), from a file of either package; a mesh fitter takes its
+    shards (every rank reads the file).  Returns the iteration to resume
+    from."""
     p = read_checkpoint(path)
+    mesh = fitter.mesh
+    if mesh is not None and p["capacity"] % mesh.size("sp"):
+        raise ValueError(f"capacity {p['capacity']} does not split into "
+                         f"{mesh.size('sp')} z-slabs")
     fitter.capacity = p["capacity"]
     fitter.window_cap = p["window_cap"]
     fitter.voxel_size = p["voxel_size"]
     fitter.state, fitter.adam, fitter.stats = training_state_from_numpy(
         p, device=fitter.device)
+    if mesh is not None:
+        from gsvc_tpu_torch.parallel.spmd import (
+            shard_adam_state, shard_model_state, shard_train_stats,
+        )
+
+        fitter.state = shard_model_state(fitter.state, mesh)
+        fitter.adam = shard_adam_state(fitter.adam, mesh)
+        fitter.stats = shard_train_stats(fitter.stats, mesh)
     fitter.controller.current_iteration = p["controller_iteration"]
     fitter.rng.bit_generator.state = p["np_rng"]
     if "torch_generator" in p:
         _restore_generator(fitter, p)
+    if mesh is not None and mesh.dp_index > 0:
+        # the file holds dp group 0's noise generator; the others draw
+        # their own stream, seeded from (seed, iteration, dp index)
+        seed, it = _seed_of(p, fitter.seed), int(p["iteration"])
+        fitter.generator.manual_seed(int(np.random.SeedSequence(
+            [seed, it, mesh.dp_index]).generate_state(1, np.uint64)[0]))
     if "gaussian_cap" in p:
         fitter.settings = dataclasses.replace(
             fitter.settings, gaussian_cap=p["gaussian_cap"],

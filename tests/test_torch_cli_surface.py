@@ -16,7 +16,8 @@
   flow-field PNG byte-equal, at least 99% of the scatter pixels equal
   (gaussian positions agree to float rounding, so a dot can land one
   pixel over), the viewer's PNG to 1 LSB;
-* ``--gop_parallel`` and ``--mesh`` raise, naming ROADMAP A5.
+* ``--gop_size 3 --gop_parallel`` writes the sequential run's artifacts
+  into each ``gop_*``.
 
 ``report.evaluate_video`` under both ``GSVC_DECODE`` values is held to
 JAX's in tests/test_torch_tools.py.
@@ -165,13 +166,28 @@ def test_sweep_equals_jax(video_dir, tmp_path, monkeypatch):
     assert set(pcurve[0]) == {"lmbda", "bpp", "psnr", "ms_ssim", "size_mb"}
 
 
-def test_multi_gpu_options_raise(tmp_path):
-    from gsvc_tpu_torch.cli.train import main
+def test_multi_gpu_options_run(segmented, tmp_path):
+    """``--gop_size 3 --gop_parallel`` (two spawned ranks, one GOP each,
+    flows included) writes into each ``gop_*`` the artifacts of the
+    sequential run above.  ``--mesh`` runs in
+    tests/test_torch_train.py, ``pipeline.mesh_shape`` in
+    tests/test_torch_gop_parallel.py."""
+    from tests.test_torch_gop_parallel import run_cli
 
-    for extra in (["--gop_size", "2", "--gop_parallel"],
-                  ["--mesh", "dp=2,sp=1"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-            main(["--model_path", str(tmp_path), "--device", "cpu"] + extra)
+    root, _ = segmented
+    out = tmp_path / "fanout"
+    run_cli(tmp_path, [
+        "--source_path", str(root / "frames"), "--optical_path",
+        str(root / "flow"), "--model_path", str(out), "--config_path",
+        str(root / "small.yaml"), "--device", "cpu", "--gop_size", "3",
+        "--gop_parallel", "--iterations", "6"])
+    summary = json.loads((out / "results.json").read_text())
+    assert summary["gops"] == 2 and summary["mesh"] == {"dp": 2, "sp": 1}
+    for start, res in zip((0, 3), summary["per_gop"]):
+        gop = out / f"gop_{start:05d}"
+        for name in ARTIFACTS:
+            assert (gop / name).exists(), (gop, name)
+        assert res["bpp"] > 0 and res["iterations"] == 6
 
 
 # ---------------------------------------------------------------------------

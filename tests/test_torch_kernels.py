@@ -1191,3 +1191,173 @@ def test_mirror_decode_launches_b1_once_per_frame(monkeypatch):
                      bidir.bidir_composite_attrs.launches - b4, ev["psnr"])
     assert got["mirror"][:2] == (3, 0) and got["bidir"][:2] == (0, 3)
     assert got["mirror"][2] == pytest.approx(got["bidir"][2], abs=0.01)
+
+
+# ---------------------------------------------------------------------------
+# Multi-rank collectives on the card (gloo ranks sharing cuda:0)
+# ---------------------------------------------------------------------------
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_gloo_ranks(fn, world, out_dir, timeout=240.0):
+    """``fn(rank, world, port, out_dir)`` on ``world`` spawned processes;
+    a rank that raises fails the test, and ranks past ``timeout`` seconds
+    are killed and fail it."""
+    import time
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=(world, _free_port(), str(out_dir)),
+                             nprocs=world, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            pytest.fail(f"gloo ranks still running after {timeout} s")
+
+
+def _gloo_init(rank, world, port):
+    import datetime
+
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    torch.cuda.set_device(0)
+
+
+def _collectives_rank(rank, world, port, out_dir):
+    """psum, all_gather and ppermute (forward and backward) on cuda:0
+    against the same calls on CPU copies (to float rounding); ppermute
+    over gloo stages the CUDA tensor through the host, counted."""
+    import torch.distributed as dist
+
+    from gsvc_tpu_torch.parallel import spmd
+
+    _gloo_init(rank, world, port)
+    try:
+        mesh = spmd.make_mesh(1, world, "cuda:0")
+        perm = [(s, (s + 1) % world) for s in range(world)]
+        got = {}
+        for dev in ("cpu", "cuda"):
+            gen = torch.Generator().manual_seed(rank)
+            x = torch.randn(3, 5, 7, generator=gen).to(dev).requires_grad_()
+            w = torch.randn(3, 5, 7, generator=gen).to(dev)
+            before = mesh.stats.host_copies
+            outs = (spmd.psum(x, mesh), spmd.all_gather(x, mesh).sum(0),
+                    spmd.ppermute(x, mesh, perm), spmd.pmean(x, mesh))
+            loss = sum((o * w * (i + 1)).sum() for i, o in enumerate(outs))
+            (g,) = torch.autograd.grad(loss, [x])
+            got[dev] = ([o.detach().cpu() for o in outs], g.cpu(),
+                        mesh.stats.host_copies - before)
+        # gloo's CUDA all-reduce may add in another order than its CPU one
+        for a, b in zip(got["cpu"][0] + [got["cpu"][1]],
+                        got["cuda"][0] + [got["cuda"][1]]):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+        # the CPU path copies nothing; the CUDA ppermute stages its send
+        # and its receive, forward and backward
+        assert got["cpu"][2] == 0 and got["cuda"][2] == 4
+        assert mesh.backend == "gloo"
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_gloo_collectives_on_the_card_equal_the_cpu(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _run_gloo_ranks(_collectives_rank, 3, tmp_path)
+
+
+def _spread_state(device):
+    """A tiny model whose 128 anchors spread over z in [-0.5, 0.5], with
+    a +-0.08 window at z = 0 spanning 2 of 4 slabs, and nonzero features
+    and offsets (tests/test_parallel.py's neighbour-exchange case).  The
+    offsets have no z component: the slab composite equals the one-rank
+    composite only when the slabs are depth-disjoint, and a gaussian
+    offset past its slab's last anchor is composited in slab order, not
+    depth order (the JAX package's design; ROADMAP §C).  With z offsets
+    drawn like the x and y ones the two differ by up to 1.9e-3 here."""
+    from gsvc_tpu_torch.config import ModelConfig
+    from gsvc_tpu_torch.models.gaussians import (
+        GaussianConfig, init_model, update_anchor_bound,
+    )
+
+    cfg = GaussianConfig.from_model_config(ModelConfig(
+        anchor_feature_dim=8, n_offsets=4, threshold=0.08,
+        time_multi_res=4, offset_multi_res=4, log2=6, log2_2D=7,
+        grid_feature_dim=2, resolutions_list=(6, 10),
+        resolutions_list_2D=(12, 20)))
+    rng = np.random.default_rng(11)
+    pts = rng.uniform([-0.5, -0.4, -0.5], [0.5, 0.4, 0.5],
+                      (128, 3)).astype(np.float32)
+    state = init_model(torch.Generator().manual_seed(3), cfg, pts, 128,
+                       device=device)
+    state = update_anchor_bound(state, -0.6, -0.45, -0.5)
+    gen = torch.Generator().manual_seed(4)
+    a = state.anchors
+    offset = 0.3 * torch.randn(a.offset.shape, generator=gen)
+    offset[..., 2] = 0.0
+    state = state._replace(anchors=a._replace(
+        feat=(0.5 * torch.randn(a.feat.shape, generator=gen)).to(device),
+        offset=offset.to(device)))
+    return cfg, state
+
+
+def _slab_rank(rank, world, port, out_dir):
+    """Each rank renders its z-slab of ``_spread_state`` (kernel B5f) and
+    combines the partials over sp with both branches; rank 0 holds them
+    against the single-rank render of the whole state."""
+    import torch.distributed as dist
+
+    from gsvc_tpu_torch.parallel import spmd
+    from gsvc_tpu_torch.render.pipeline import (
+        make_raster_settings, render_frame,
+    )
+
+    _gloo_init(rank, world, port)
+    try:
+        cfg, full = _spread_state("cuda")
+        # no tile overflows: the whole state's 512 gaussians fit a tile
+        settings = make_raster_settings(cfg, 24, 32, tile_h=8, tile_w=16,
+                                        gaussian_cap=512, chunk=32)
+        geom = (-0.6, -0.45, 26.0)
+        for n_sp in (2, 4):
+            mesh = spmd.make_mesh(world // n_sp, n_sp, "cuda:0")
+            local = spmd.shard_model_state(full, mesh)
+            for flip in (False, True):
+                r = render_frame(local, cfg, 0.0, *geom, settings,
+                                 128 // n_sp, flip=flip)
+                imgs = [spmd.combine_slab_renders(
+                    r.image, r.transmittance, flip, settings.bg, mesh,
+                    neighbors=nb)[0] for nb in (None, 1)]
+                ref = render_frame(full, cfg, 0.0, *geom, settings, 128,
+                                   flip=flip).image
+                torch.testing.assert_close(imgs[1], imgs[0], atol=1e-6,
+                                           rtol=0)
+                torch.testing.assert_close(imgs[0], ref, atol=2e-4, rtol=0)
+                assert float(ref.abs().max()) > 0.05
+            if n_sp == 4:
+                assert mesh.stats.host_copies > 0   # ppermute rounds ran
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_slab_composite_over_gloo_ranks_matches_one_rank(tmp_path):
+    """``combine_slab_renders`` on four gloo ranks sharing cuda:0, as 2 x 2
+    (sp = 2: the all-gather branch) and 1 x 4 (sp = 4: one ppermute round,
+    staged through the host) against the single-rank render at
+    tests/test_parallel.py's 2e-4; the branches agree to 1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _run_gloo_ranks(_slab_rank, 4, tmp_path)

@@ -3,8 +3,10 @@ the same seeded inputs:
 
 * ``utils/ply.py``: the same arrays give the same file bytes, and the
   file reads back to the arrays;
-* ``GOPFitter.save_snapshot`` on one carried-over state (both called
-  unbound on a namespace holding only the state): byte-equal
+* the fitter's snapshot on one carried-over state (JAX's
+  ``GOPFitter.save_snapshot`` called unbound on a namespace holding only
+  the state, the port's ``train/fit.py:write_snapshot``, which
+  ``GOPFitter.save_snapshot`` calls on its gathered state): byte-equal
   ``point_cloud.ply`` and ``networks.pkl`` dicts with the same keys and
   equal arrays;
 * ``utils/flow_viz.flow_to_image`` and ``utils/inspector.check_tensor``:
@@ -50,7 +52,7 @@ from gsvc_tpu_torch.models.gaussians import (
 )
 from gsvc_tpu_torch.render import splat as psplat
 from gsvc_tpu_torch.render.pipeline import make_raster_settings
-from gsvc_tpu_torch.train.fit import GOPFitter
+from gsvc_tpu_torch.train.fit import write_snapshot
 from gsvc_tpu_torch.utils import flow_viz as pflow, inspector as pinsp
 from gsvc_tpu_torch.utils import ply as pply
 from tests.test_splat import make_scene
@@ -106,7 +108,7 @@ def test_snapshot_matches_jax(tmp_path, tiny_state):
     pstate = _port_state(jstate)
     assert pstate.n_active < pstate.anchors.anchor.shape[0]
     JaxFitter.save_snapshot(SimpleNamespace(state=jstate), str(tmp_path / "j"))
-    GOPFitter.save_snapshot(SimpleNamespace(state=pstate), str(tmp_path / "p"))
+    write_snapshot(pstate, str(tmp_path / "p"))
     assert (tmp_path / "p" / "point_cloud.ply").read_bytes() == \
         (tmp_path / "j" / "point_cloud.ply").read_bytes()
     got = pply.load_gaussian_ply(str(tmp_path / "p" / "point_cloud.ply"))

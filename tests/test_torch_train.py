@@ -465,14 +465,24 @@ def test_cli_encodes_on_cpu_with_jax_blocked(tmp_path, width):
     assert "estimated bits: total=" in log and "encoded " in log
 
 
-def test_cli_refuses_unported_options(tmp_path):
-    """Only multi-GPU fitting is left unported (ROADMAP A5); LPIPS,
-    --gop_size and --profile work (tests/test_torch_cli_surface.py)."""
-    from gsvc_tpu_torch.cli.train import main
+def test_cli_runs_multi_rank_options_with_jax_blocked(tmp_path):
+    """``--mesh dp=2,sp=1`` (two spawned gloo ranks, one frame pair
+    each a step) fits the tiny GOP on the CPU with JAX blocked; the mesh
+    fitter's checkpoint holds the run's iterations.  The multi-rank path
+    is held to JAX in tests/test_torch_spmd.py and
+    tests/test_torch_gop_parallel.py."""
+    import json
+    from gsvc_tpu_torch.utils.checkpoint import read_checkpoint
+    from tests.test_torch_gop_parallel import run_cli
 
-    with pytest.raises(NotImplementedError, match="mesh"):
-        main(["--model_path", str(tmp_path), "--device", "cpu",
-              "--skip_codec", "--mesh", "dp=2,sp=1"])
-    with pytest.raises(NotImplementedError, match="gop_parallel"):
-        main(["--model_path", str(tmp_path), "--device", "cpu",
-              "--gop_size", "2", "--gop_parallel"])
+    src, cfg = _cli_inputs(tmp_path, _video_u8())
+    out = tmp_path / "out"
+    run_cli(tmp_path, [
+        "--source_path", str(src), "--model_path", str(out),
+        "--config_path", str(cfg), "--device", "cpu", "--skip_codec",
+        "--mesh", "dp=2,sp=1"])
+    res = json.loads((out / "results.json").read_text())
+    assert res["iterations"] == 6 and np.isfinite(res["fit_psnr"])
+    ck = read_checkpoint(str(out / "chkpnt_final.pkl"))
+    assert ck["adam_step"] == 6 and ck["n_active"] == res["n_anchors"]
+    assert "dp=2 x sp=1" in (out / "output.log").read_text()
