@@ -160,8 +160,11 @@
    ``neighbors=1`` takes the ppermute rounds staged through the host),
    ``combine_slab_renders`` with and without ``neighbors`` against the
    single-rank ``render_frame`` at 2e-4, the branches within 1e-6; the
-   same for the frame at the slabs' middle boundary, whose distance from
-   the single-rank render is printed, not gated;
+   same, gated alike, for a depth-disjoint copy of the state (no z
+   offsets, no two slabs at one depth) at the frame on the slabs' middle
+   boundary, where the combine weights one slab by another's
+   transmittance; the fitted state's boundary frame, whose slabs overlap
+   in depth, is printed, not gated;
    (b) ``cli.train.main --mesh dp=2,sp=2`` with the codec on the
    whole-video phase's GOP 0 (8 frames, the fixture's full model, the
    12-step schedule), on 4 ranks that the smoke spawns inside a gloo group
@@ -171,7 +174,8 @@
    of 2, equal nets on all ranks, bpp > 0 and a finite decoded PSNR; the
    mesh checkpoint in a single-GPU ``GOPFitter`` evaluates frame 0 to the
    mesh fitter's PSNR exactly; per rank the peak memory, the median step
-   and the collective milliseconds a step; (c) ``cli.train.main
+   and the collective milliseconds a step (the smoke's own synchronised
+   host clock around the transport helpers); (c) ``cli.train.main
    --gop_size 8 --gop_parallel`` on the 16 frames through the CLI's own
    spawner (2 ranks): every ``gop_*`` artifact of the sequential run, the
    summary's gops and mesh, its wall beside the sequential run's.
@@ -2671,63 +2675,96 @@ def _rank_group(rank: int, world: int, port: int):
     torch.cuda.set_device(0)
 
 
+def _depth_disjoint(state):
+    """A copy of ``state`` whose z-slabs are depth-disjoint: no gaussian
+    leaves its anchor's depth (the offsets' scale in z, ``exp(scaling[:,
+    2])``, made ~1e-26, so learned and neural offsets alike lose their z
+    part), and the anchors that share one z value (the voxel grid) spread
+    evenly over the gap to the next value, so no two slabs hold gaussians
+    at one depth (equal depths composite in row order, not slab order).
+    The rows stay z-sorted."""
+    n = state.n_active
+    anchor = state.anchors.anchor.clone()
+    z = anchor[:n, 2].cpu().numpy().astype(np.float64)
+    starts = np.r_[0, np.flatnonzero(np.diff(z)) + 1]
+    counts = np.diff(np.r_[starts, n])
+    gaps = np.diff(np.r_[z[starts], z[-1] + 1e-3])
+    within = np.arange(n) - np.repeat(starts, counts)
+    anchor[:n, 2] = torch.from_numpy(
+        (z + np.repeat(gaps / counts, counts) * within).astype(np.float32))
+    scaling = state.anchors.scaling.clone()
+    scaling[:, 2] = -60.0
+    return state._replace(anchors=state.anchors._replace(anchor=anchor,
+                                                         scaling=scaling))
+
+
 def _slab_checks(rank: int, world: int, job: dict):
-    """The slab composite of the fitted state on this rank of the group:
-    frame SLAB_FRAME and the frame nearest the z of the anchor row at half
-    the capacity (where the slabs of sp = 2 and the middle ones of sp = 4
-    meet), forward and flipped views, one z-slab a rank (B5f), combined
-    over sp with and without ``neighbors``, at sp = 2 (mesh 2 x 2) and
-    sp = 4 (1 x 4); ``neighbors`` is the fitter's bound, min(sp - 1,
-    ceil(global window band / slab rows)), which takes the ppermute rounds
-    when it is below sp - 1.  Returns, on rank 0, each case's largest
-    difference from the single-rank render of the whole state and between
-    the branches, the combine's milliseconds and the host copies."""
+    """The slab composite on this rank of the group, forward and flipped
+    views, one z-slab a rank (B5f), combined over sp with and without
+    ``neighbors``, at sp = 2 (mesh 2 x 2) and sp = 4 (1 x 4); ``neighbors``
+    is the fitter's bound, min(sp - 1, ceil(global window band / slab
+    rows)), which takes the ppermute rounds when it is below sp - 1.
+    Cases: the fitted state at frame SLAB_FRAME (gated) and at the frame
+    nearest the z of the anchor row at half the capacity (where the slabs
+    of sp = 2 and the middle ones of sp = 4 meet; not gated: its slabs
+    overlap in depth), and ``_depth_disjoint`` of it at its own boundary
+    frame (gated).  Returns, on rank 0, each case's largest difference
+    from the single-rank render of the same state and between the
+    branches, the combine's milliseconds and the host copies."""
     from gsvc_tpu_torch.convert import state_from_numpy
     from gsvc_tpu_torch.parallel import spmd
     from gsvc_tpu_torch.render.pipeline import render_frame
     from gsvc_tpu_torch.train.fit import compute_window_cap
     from gsvc_tpu_torch.utils.checkpoint import read_checkpoint
 
-    state = state_from_numpy(read_checkpoint(job["ckpt"]), "cuda")
-    cap = state.anchors.anchor.shape[0]
+    fitted = state_from_numpy(read_checkpoint(job["ckpt"]), "cuda")
+    cap = fitted.anchors.anchor.shape[0]
     zs = np.asarray(job["frame_zs"])
-    band = compute_window_cap(state.anchors.anchor[:, 2].cpu().numpy(),
-                              state.n_active, zs, job["gcfg"].threshold)
-    z_mid = float(state.anchors.anchor[cap // 2, 2])
     res = {}
-    for f in sorted({SLAB_FRAME, int(np.argmin(np.abs(zs - z_mid)))}):
-        args = (float(zs[f]), *job["geom"], job["settings"])
-        ref = {flip: render_frame(state, job["gcfg"], *args,
-                                  job["window_cap"], flip=flip).image
-               for flip in (False, True)} if rank == 0 else {}
-        for n_sp in (2, 4):
-            mesh = spmd.make_mesh(world // n_sp, n_sp, "cuda:0")
-            local = spmd.shard_model_state(state, mesh)
-            wc = min(job["window_cap"], cap // n_sp)
-            bound = min(n_sp - 1, -(-band // (cap // n_sp)))
-            for flip in (False, True):
-                r = render_frame(local, job["gcfg"], *args, wc, flip=flip)
-                imgs, ms = {}, {}
-                for nb in (None, bound):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    imgs[nb] = spmd.combine_slab_renders(
-                        r.image, r.transmittance, flip,
-                        job["settings"].bg, mesh, neighbors=nb)[0]
-                    torch.cuda.synchronize()
-                    ms[nb] = (time.perf_counter() - t0) * 1e3
-                if rank == 0:
-                    diff = (imgs[None] - ref[flip]).abs()
-                    res[(f, n_sp, flip)] = {
-                        "err": float(diff.max()), "neighbors": bound,
-                        "err_nb": float((imgs[bound] - ref[flip]).abs()
-                                        .max()),
-                        "branch": float((imgs[bound] - imgs[None]).abs()
-                                        .max()),
-                        "over": int((diff > SLAB_ATOL).sum()),
-                        "ms": ms[None], "ms_nb": ms[bound], "band": band,
-                        "host_copies": mesh.stats.host_copies}
-    del state
+    for label, state in (("fitted", fitted),
+                         ("depth-disjoint", _depth_disjoint(fitted))):
+        band = compute_window_cap(state.anchors.anchor[:, 2].cpu().numpy(),
+                                  state.n_active, zs, job["gcfg"].threshold)
+        window = max(job["window_cap"], band)
+        z_mid = float(state.anchors.anchor[cap // 2, 2])
+        frames = {int(np.argmin(np.abs(zs - z_mid))): label != "fitted"}
+        if label == "fitted":
+            frames[SLAB_FRAME] = True
+        for f, gated in sorted(frames.items()):
+            args = (float(zs[f]), *job["geom"], job["settings"])
+            ref = {flip: render_frame(state, job["gcfg"], *args, window,
+                                      flip=flip).image
+                   for flip in (False, True)} if rank == 0 else {}
+            for n_sp in (2, 4):
+                mesh = spmd.make_mesh(world // n_sp, n_sp, "cuda:0")
+                local = spmd.shard_model_state(state, mesh)
+                wc = min(window, cap // n_sp)
+                bound = min(n_sp - 1, -(-band // (cap // n_sp)))
+                for flip in (False, True):
+                    r = render_frame(local, job["gcfg"], *args, wc,
+                                     flip=flip)
+                    imgs, ms = {}, {}
+                    for nb in (None, bound):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        imgs[nb] = spmd.combine_slab_renders(
+                            r.image, r.transmittance, flip,
+                            job["settings"].bg, mesh, neighbors=nb)[0]
+                        torch.cuda.synchronize()
+                        ms[nb] = (time.perf_counter() - t0) * 1e3
+                    if rank == 0:
+                        diff = (imgs[None] - ref[flip]).abs()
+                        res[(label, f, n_sp, flip)] = {
+                            "err": float(diff.max()), "neighbors": bound,
+                            "err_nb": float((imgs[bound] - ref[flip]).abs()
+                                            .max()),
+                            "branch": float((imgs[bound] - imgs[None])
+                                            .abs().max()),
+                            "over": int((diff > SLAB_ATOL).sum()),
+                            "ms": ms[None], "ms_nb": ms[bound],
+                            "band": band, "gated": gated,
+                            "host_copies": mesh.stats.host_copies}
+    del fitted, state
     torch.cuda.empty_cache()
     return res if rank == 0 else None
 
@@ -2748,7 +2785,8 @@ def _mesh_rank(rank, world, port, argv, out_dir, slab_job):
     composite checks (``_slab_checks``; rank 0 writes ``slab.pkl``), then
     ``cli.train.main(argv)`` (``--mesh``: the CLI's use-the-group path).
     Writes ``rank<r>.pkl``: its launches per step and in all, each step's
-    milliseconds and collective milliseconds (host clock, synchronised),
+    milliseconds and collective milliseconds (the host clock around
+    spmd's transport helpers, synchronised before and after each call),
     its peak memory, the nets' digest, the capacity, and the mesh
     fitter's FULL_PRECISION evaluation of frame 0."""
     import hashlib
@@ -2758,6 +2796,7 @@ def _mesh_rank(rank, world, port, argv, out_dir, slab_job):
 
     from gsvc_tpu_torch.cli import train as cli_train
     from gsvc_tpu_torch.models.gaussians import GenerateMode
+    from gsvc_tpu_torch.parallel import spmd
     from gsvc_tpu_torch.train.fit import GOPFitter
     from gsvc_tpu_torch.train.optim import tree_leaves
 
@@ -2775,21 +2814,39 @@ def _mesh_rank(rank, world, port, argv, out_dir, slab_job):
 
     steps, box = [], {}
     orig = GOPFitter._run_single
+    # the collectives' time: the host clock between two synchronisations
+    # around each of spmd's transport helpers (they do not synchronise)
+    coll = {"s": 0.0}
+    helpers = {n: getattr(spmd, n) for n in ("_reduce", "_gather",
+                                             "_permute")}
+
+    def timed(fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                coll["s"] += time.perf_counter() - t0
+        return run
 
     def run_single(self, it, n):
         box["fitter"] = self
-        c0, s0 = counts(), self.mesh.stats.seconds
+        c0, s0 = counts(), coll["s"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         m = orig(self, it, n)
         torch.cuda.synchronize()
         c1 = counts()
         steps.append({"it": it, "ms": (time.perf_counter() - t0) * 1e3,
-                      "coll_ms": (self.mesh.stats.seconds - s0) * 1e3,
+                      "coll_ms": (coll["s"] - s0) * 1e3,
                       "launches": {k: c1[k] - c0[k] for k in c1}})
         return m
 
     GOPFitter._run_single = run_single
+    for n, fn in helpers.items():
+        setattr(spmd, n, timed(fn))
     try:
         for _, c in counters:
             c.launches = 0
@@ -2803,6 +2860,8 @@ def _mesh_rank(rank, world, port, argv, out_dir, slab_job):
         peak = torch.cuda.max_memory_allocated()
     finally:
         GOPFitter._run_single = orig
+        for n, fn in helpers.items():
+            setattr(spmd, n, fn)
     fitter = box["fitter"]
     ev0 = fitter.evaluate(GenerateMode.FULL_PRECISION, frames=[0])["psnr"]
     digest = hashlib.sha256(b"".join(
@@ -2826,13 +2885,15 @@ def multi_rank_phase(root: pathlib.Path, seq_wall: float, slab_job: dict):
     fixture's full model with the 12-step schedule):
 
     (1) the slab composite (``_slab_checks``, on the ranks of (2) before
-        the fit): frame SLAB_FRAME combined within SLAB_ATOL of the
-        single-rank render, and for it and for the frame at the slabs'
-        middle boundary the two branches within BRANCH_ATOL of each other,
-        at sp = 2 and sp = 4 (where ``neighbors`` = 1 takes the ppermute
-        rounds, staged through the host over gloo); the boundary frame's
-        distance from the single-rank render is printed, not gated (the
-        decomposition is exact only for depth-disjoint slabs);
+        the fit), at sp = 2 and sp = 4 (where ``neighbors`` = 1 takes the
+        ppermute rounds, staged through the host over gloo): the fitted
+        state's frame SLAB_FRAME, and the depth-disjoint copy's frame at
+        the slabs' middle boundary (where one slab's colours are weighted
+        by another's transmittance), each combined within SLAB_ATOL of the
+        single-rank render of the same state; the fitted state's boundary
+        frame, whose slabs overlap in depth (the decomposition is exact
+        only for depth-disjoint slabs), printed, not gated; in every case
+        the two branches within BRANCH_ATOL of each other;
     (2) ``cli.train.main --mesh dp=2,sp=2`` on GOP 0 with the codec, on 4
         ranks that the smoke spawns inside a gloo group on cuda:0
         (``_mesh_rank``): B1 and B2 once a step on every rank, B3f/B3b
@@ -2881,9 +2942,9 @@ def multi_rank_phase(root: pathlib.Path, seq_wall: float, slab_job: dict):
     with open(ranks_dir / "slab.pkl", "rb") as f:
         slab = pickle.load(f)
     for key, r in sorted((k, v) for k, v in slab.items() if k != "wall"):
-        f, n_sp, flip = key
-        gated = f == SLAB_FRAME
-        log(f"multi-rank phase: slab composite, frame {f} "
+        label, f, n_sp, flip = key
+        gated = r["gated"]
+        log(f"multi-rank phase: slab composite, {label} state, frame {f} "
             f"{'flipped' if flip else 'forward'} view, sp={n_sp}: max |"
             f"combined - single-rank| {r['err']:.3e} (all-gather), "
             f"{r['err_nb']:.3e} (neighbors={r['neighbors']}: global band "

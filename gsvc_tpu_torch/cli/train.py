@@ -305,11 +305,12 @@ def _rank_logger(rank: int, paths: list) -> logging.Logger:
 
 
 def _train_gop_parallel(args, cfg):
-    """The GOP fan-out (``parallel/spmd.py:GopFanout``): this dp rank fits
-    its segment while the others fit theirs, with the shared draws of the
-    JAX package's ``fit_gops``; then it writes its ``gop_*/`` (config,
-    log, metrics, snapshot, checkpoint) and runs its own encode, decode
-    and evaluation.  Rank 0 writes the summary ``results.json``."""
+    """The GOP fan-out (``parallel/spmd.py:GopRankFitter``): this dp rank
+    fits its segment while the others fit theirs, with the shared draws
+    of the JAX package's ``fit_gops``; then it writes what the sequential
+    run writes into its ``gop_*/`` (config, log, metrics, snapshot,
+    checkpoint, results) and runs its own encode, decode and evaluation.
+    Rank 0 writes the summary ``results.json``."""
     import dataclasses
     import os
     import tempfile
@@ -318,8 +319,7 @@ def _train_gop_parallel(args, cfg):
     import torch.distributed as dist
 
     from gsvc_tpu_torch.framecube.frame import FrameCubeDataset
-    from gsvc_tpu_torch.parallel.spmd import GopFanout, make_mesh
-    from gsvc_tpu_torch.train.fit import compute_window_cap, write_snapshot
+    from gsvc_tpu_torch.parallel.spmd import GopRankFitter, make_mesh
     from gsvc_tpu_torch.utils.checkpoint import save_checkpoint
     from gsvc_tpu_torch.utils.logging import MetricsWriter, dump_config
 
@@ -362,30 +362,19 @@ def _train_gop_parallel(args, cfg):
                 prefetch=(not cfg.pipeline.skip_prefetch
                           and i == mesh.dp_index), cache=False))
         try:
-            fan = GopFanout(mesh, cfg, datasets, seed=args.seed,
-                            log_fn=log.info, device=device)
-            iterations = (args.iterations if args.iterations is not None
-                          else cfg.optimization.iterations)
-            reports = fan.fit(iterations, metrics_writer=metrics)
+            fitter = GopRankFitter(mesh, cfg, datasets, seed=args.seed,
+                                   log_fn=log.info, device=device)
+            report = fitter.fit(
+                eval_every=args.eval_every, rate_log_every=500,
+                checkpoint_iterations=tuple(args.checkpoint_iterations),
+                checkpoint_dir=str(out_dir), metrics_writer=metrics)
         finally:
             metrics.close()
-        write_snapshot(fan.state, str(out_dir / "point_cloud" / "final"))
-        save_checkpoint(str(out_dir / "chkpnt_final.pkl"), fan, iterations)
-        ds, st = datasets[mesh.dp_index], fan.state
-        mine = reports[mesh.dp_index]
-        res = {"n_anchors": int(st.n_active),
-               "fit_psnr": mine[-1]["psnr"] if mine else None,
-               "iterations": iterations, "device": str(device)}
-        if not args.skip_codec:
-            zs = fan.frame_zs[mesh.dp_index]
-            window_cap = compute_window_cap(
-                st.anchors.anchor[:, 2].cpu().numpy(), st.n_active, zs,
-                fan.gcfg.threshold)
-            res.update(_codec_eval(
-                st, fan.gcfg, fan.settings, window_cap,
-                st.anchors.anchor.shape[0], zs, ds, cfg, str(out_dir),
-                args.lpips_weights, log.info, eval_stride=args.eval_stride))
-    (out_dir / "results.json").write_text(json.dumps(res, indent=2))
+        fitter.save_snapshot(str(out_dir / "point_cloud" / "final"))
+        save_checkpoint(str(out_dir / "chkpnt_final.pkl"), fitter,
+                        report.iterations)
+        res = _finish(args, cfg, fitter, fitter.state, report,
+                      datasets[mesh.dp_index], out_dir, log)
     aggregate = [None] * dist.get_world_size()
     dist.all_gather_object(aggregate, res)
     summary = {
@@ -530,7 +519,7 @@ def main(argv=None):
                         help="fit one model per segment of this many frames")
     parser.add_argument("--gop_parallel", action="store_true",
                         help="with --gop_size: fit every GOP at once, one "
-                             "dp rank a GOP (parallel/spmd.py:GopFanout)")
+                             "dp rank a GOP (parallel/spmd.py:GopRankFitter)")
     parser.add_argument("--mesh", type=str, default=None,
                         help="mesh spec, e.g. 'dp=2,sp=2' (overrides "
                              "pipeline.mesh_shape): anchors in sp z-slabs, "

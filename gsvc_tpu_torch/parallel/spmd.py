@@ -32,13 +32,15 @@ Transport: NCCL moves CUDA tensors; gloo moves CPU tensors and, for
 ``all_reduce`` and ``all_gather``, CUDA tensors.  gloo has no CUDA path
 for ``send``/``recv``, so ``ppermute`` over gloo stages a CUDA tensor
 through the host: an explicit copy each way, counted in
-``Mesh.stats.host_copies``.  Every collective is timed on the host clock
-between two CUDA synchronisations (``Mesh.stats``).  Every process group
-has a timeout (``GROUP_TIMEOUT``), so a rank that dies fails the others
+``Mesh.stats.host_copies``.  ``Mesh.stats`` counts each rank's
+collective calls and payload bytes; nothing here synchronises the device
+(a caller that wants their time wraps ``_reduce``, ``_gather`` and
+``_permute`` itself, as chip_smoke.py does).  Every process group has a
+timeout (``GROUP_TIMEOUT``), so a rank that dies fails the others
 instead of hanging them.
 
-The GOP fan-out (``GopFanout``, ``fit_gops``): each dp rank fits one GOP
-with the single-GPU step body, with no collective in the step; the
+The GOP fan-out (``GopRankFitter``, ``fit_gops``): each dp rank fits one
+GOP with a single-GPU ``GOPFitter`` (no collective in the step); the
 random draws JAX takes from one ``numpy.random.Generator`` across all
 GOPs (initial point clouds, every step's frame indices, the densify
 epochs) are replayed on every rank, which keeps its own GOP's.
@@ -47,15 +49,13 @@ epochs) are replayed on every rank, which keeps its own GOP's.
 from __future__ import annotations
 
 import datetime
-import time
-from typing import List, Optional
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from gsvc_tpu_torch.config import ModelConfig, OptimizationConfig
-from gsvc_tpu_torch.device import synchronize
 from gsvc_tpu_torch.metrics.image import psnr
 from gsvc_tpu_torch.models.gaussians import (
     AnchorState, GaussianConfig, GenerateMode, ModelState,
@@ -64,6 +64,7 @@ from gsvc_tpu_torch.ops.entropy import binary_vxl_size
 from gsvc_tpu_torch.ops.quant import ste_binary
 from gsvc_tpu_torch.render.batched import render_pair
 from gsvc_tpu_torch.render.splat import RasterSettings
+from gsvc_tpu_torch.train.fit import GOPFitter, compute_window_cap
 from gsvc_tpu_torch.train.optim import (
     AdamState, adam_update, build_lr_tree, tree_leaves, tree_map,
     tree_unflatten,
@@ -119,20 +120,22 @@ def rank_device(device: str, rank: int) -> torch.device:
 
 
 class CollectiveStats:
-    """What the collectives of one rank cost: calls, payload bytes,
-    seconds on the host clock between two CUDA synchronisations, and the
-    explicit host copies of gloo's staged ``send``/``recv``."""
+    """What the collectives of one rank move: calls, payload bytes, and
+    the explicit host copies of gloo's staged ``send``/``recv``."""
 
     def __init__(self):
         self.calls = 0
         self.bytes = 0
-        self.seconds = 0.0
         self.host_copies = 0
         self.host_bytes = 0
 
+    def add(self, nbytes: int):
+        self.calls += 1
+        self.bytes += nbytes
+
     def as_dict(self) -> dict:
         return {"calls": self.calls, "bytes": self.bytes,
-                "seconds": self.seconds, "host_copies": self.host_copies,
+                "host_copies": self.host_copies,
                 "host_bytes": self.host_bytes}
 
 
@@ -190,25 +193,6 @@ def make_mesh(n_dp: int = 1, n_sp: int = 1, device=None) -> Mesh:
 # Collectives
 # ---------------------------------------------------------------------------
 
-class _Timed:
-    """Host clock between two synchronisations of ``device``, added to
-    ``stats`` with the payload bytes."""
-
-    def __init__(self, mesh: Mesh, nbytes: int, device: torch.device):
-        self.mesh, self.nbytes, self.device = mesh, nbytes, device
-
-    def __enter__(self):
-        synchronize(self.device)
-        self.t0 = time.perf_counter()
-
-    def __exit__(self, *exc):
-        synchronize(self.device)
-        st = self.mesh.stats
-        st.calls += 1
-        st.bytes += self.nbytes
-        st.seconds += time.perf_counter() - self.t0
-
-
 def _nbytes(x: torch.Tensor) -> int:
     return x.numel() * x.element_size()
 
@@ -217,8 +201,8 @@ def _reduce(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """Sum over ``axis`` into a new tensor."""
     out = x.detach().contiguous().clone()
     if mesh.size(axis) > 1:
-        with _Timed(mesh, _nbytes(out), out.device):
-            dist.all_reduce(out, group=mesh.groups[axis])
+        mesh.stats.add(_nbytes(out))
+        dist.all_reduce(out, group=mesh.groups[axis])
     return out
 
 
@@ -228,8 +212,8 @@ def _gather(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     if mesh.size(axis) == 1:
         return x[None].clone()
     parts = [torch.empty_like(x) for _ in range(mesh.size(axis))]
-    with _Timed(mesh, _nbytes(x) * len(parts), x.device):
-        dist.all_gather(parts, x, group=mesh.groups[axis])
+    mesh.stats.add(_nbytes(x) * len(parts))
+    dist.all_gather(parts, x, group=mesh.groups[axis])
     return torch.stack(parts)
 
 
@@ -247,28 +231,27 @@ def _permute(x: torch.Tensor, mesh: Mesh, axis: str, perm) -> torch.Tensor:
         return out
     staged = mesh.backend == "gloo" and x.is_cuda
     st = mesh.stats
-    with _Timed(mesh, _nbytes(x) * (len(dsts) + len(srcs)), x.device):
-        buf = x
-        if staged and dsts:
-            buf = x.cpu()
+    st.add(_nbytes(x) * (len(dsts) + len(srcs)))
+    buf = x
+    if staged and dsts:
+        buf = x.cpu()
+        st.host_copies += 1
+        st.host_bytes += _nbytes(x)
+    elif staged:
+        buf = torch.empty(x.shape, dtype=x.dtype)
+    ranks, grp = mesh.ranks[axis], mesh.groups[axis]
+    ops = [dist.P2POp(dist.isend, buf, ranks[d], group=grp) for d in dsts]
+    recv = [torch.empty_like(buf) for _ in srcs]
+    ops += [dist.P2POp(dist.irecv, r, ranks[s], group=grp)
+            for r, s in zip(recv, srcs)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    for r in recv:
+        if staged:
+            r = r.to(x.device)
             st.host_copies += 1
             st.host_bytes += _nbytes(x)
-        elif staged:
-            buf = torch.empty(x.shape, dtype=x.dtype)
-        ranks, grp = mesh.ranks[axis], mesh.groups[axis]
-        ops = [dist.P2POp(dist.isend, buf, ranks[d], group=grp)
-               for d in dsts]
-        recv = [torch.empty_like(buf) for _ in srcs]
-        ops += [dist.P2POp(dist.irecv, r, ranks[s], group=grp)
-                for r, s in zip(recv, srcs)]
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
-        for r in recv:
-            if staged:
-                r = r.to(x.device)
-                st.host_copies += 1
-                st.host_bytes += _nbytes(x)
-            out += r
+        out += r
     return out
 
 
@@ -861,31 +844,27 @@ def gop_densify_epoch(state: ModelState, adam: AdamState,
     return state, adam, new_stats, results, cap
 
 
-class GopFanout:
-    """One GOP of the fan-out on this dp rank (the per-rank state of
-    ``fit_gops``).  ``datasets`` holds every GOP (their geometry and frame
-    counts drive the shared draws); only this rank's frames go to its
-    device.  The attributes ``save_checkpoint`` reads (``state``,
-    ``adam``, ``stats``, ``capacity``, ``window_cap``, ``voxel_size``,
-    ``controller``, ``rng``, ``seed``, ``generator``, ``settings``) are
-    this GOP's, so a fan-out checkpoint loads into a single-GPU
-    ``GOPFitter``.  ``mesh`` is None (the state is the GOP's whole, not a
-    slab); the fan-out's mesh is ``gop_mesh``."""
+class GopRankFitter(GOPFitter):
+    """This dp rank's GOP of the fan-out: a single-GPU ``GOPFitter``
+    (``mesh`` None: the state is the GOP's whole, and every file and
+    evaluation is the sequential run's) that replays the draws JAX's
+    ``fit_gops`` takes from one generator across all GOPs.  ``datasets``
+    holds every GOP; the others give only their geometry and frame count.
+
+    * Init: the initial point clouds GOP by GOP from ``default_rng(seed)``
+      (GOPFitter draws this rank's), the model of GOP ``gi`` from seed
+      ``seed + gi`` (JAX's ``PRNGKey(seed + gi)``; the noise generator
+      too), and ``window_cap`` the max over GOPs.
+    * Each step: one frame draw for every GOP, this rank keeping its own.
+    * Densify epochs: ``gop_densify_epoch`` (every GOP's draws, a shared
+      capacity), then ``window_cap`` grows to the max over GOPs.
+
+    The fan-out's own mesh is ``gop_mesh``; ``gi`` is this rank's GOP."""
 
     def __init__(self, mesh: Mesh, cfg, datasets, seed: int = 0,
                  log_fn=None, device=None):
-        from gsvc_tpu_torch.device import resolve_device
         from gsvc_tpu_torch.framecube.pointcloud import init_point_cloud
-        from gsvc_tpu_torch.models.gaussians import (
-            init_anchor_arrays, init_model, update_anchor_bound,
-        )
-        from gsvc_tpu_torch.render.pipeline import (
-            check_rasterizer, make_raster_settings,
-        )
-        from gsvc_tpu_torch.train.controller import TrainingController
-        from gsvc_tpu_torch.train.fit import compute_window_cap
-        from gsvc_tpu_torch.train.optim import adam_init
-        from gsvc_tpu_torch.train.schedules import build_schedules
+        from gsvc_tpu_torch.models.gaussians import init_anchor_arrays
 
         g = len(datasets)
         if g != mesh.size("dp"):
@@ -894,159 +873,79 @@ class GopFanout:
         if mesh.size("sp") != 1:
             raise ValueError("the GOP fan-out shards over dp only; sp must "
                              "be 1")
-        self.gop_mesh, self.cfg, self.datasets = mesh, cfg, datasets
-        self.mesh = None
-        self.log = log_fn or (lambda *a: None)
-        self.device = resolve_device(device)
-        self.seed = seed
-        self.gi = gi = mesh.dp_index
-        self.gcfg = GaussianConfig.from_model_config(cfg.model)
-        opt = cfg.optimization
-        self.rng = np.random.default_rng(seed)
-        self.capacity = _round_up(int(opt.init_anchor_num * 1.5), 1024)
-        self.frame_zs = []
-        self.window_cap = 1
-        for i, ds in enumerate(datasets):
-            pts = init_point_cloud(ds.x_min, ds.y_min, ds.z_min,
-                                   n=opt.init_anchor_num, rng=self.rng)
-            zs = np.array([(j - ds.num_frames / 2) / ds.scale
-                           for j in range(ds.num_frames)], np.float32)
-            self.frame_zs.append(zs)
-            if i == gi:
-                # the JAX package's PRNGKey(seed + gi)
-                st = init_model(torch.Generator().manual_seed(seed + i),
-                                self.gcfg, pts, self.capacity,
-                                voxel_size=cfg.model.voxel_size,
-                                device=self.device)
-                self.state = update_anchor_bound(st, ds.x_min, ds.y_min,
-                                                 ds.z_min)
-                z = st.anchors.anchor[:, 2].cpu().numpy()
-                n = st.n_active
-            else:
-                fields, n = init_anchor_arrays(
-                    self.gcfg, pts, self.capacity, cfg.model.voxel_size)
-                z = fields["anchor"][:, 2]
+        self.gop_mesh, self.gi = mesh, mesh.dp_index
+        n = cfg.optimization.init_anchor_num
+        rng = np.random.default_rng(seed)
+
+        def cloud(ds):
+            return init_point_cloud(ds.x_min, ds.y_min, ds.z_min, n=n,
+                                    rng=rng)
+
+        clouds = [cloud(ds) for ds in datasets[:self.gi]]
+        super().__init__(cfg, datasets[self.gi], seed=seed + self.gi,
+                         log_fn=log_fn, device=device, rng=rng)
+        clouds += [None] + [cloud(ds) for ds in datasets[self.gi + 1:]]
+        self.gop_frames = [ds.num_frames for ds in datasets]
+        self.gop_frame_zs = [np.array([(j - ds.num_frames / 2) / ds.scale
+                                       for j in range(ds.num_frames)],
+                                      np.float32) for ds in datasets]
+        for i, pts in enumerate(clouds):
+            if pts is None:
+                continue
+            fields, n_i = init_anchor_arrays(self.gcfg, pts, self.capacity,
+                                             cfg.model.voxel_size)
             self.window_cap = max(self.window_cap, compute_window_cap(
-                z, n, zs, self.gcfg.threshold))
-        d0 = datasets[0]
-        self.settings = make_raster_settings(
-            self.gcfg, d0.height, d0.width, tile_h=cfg.pipeline.tile_h,
-            tile_w=cfg.pipeline.tile_w,
-            gaussian_cap=cfg.pipeline.visible_capacity or 1024,
-            chunk=cfg.pipeline.gaussian_chunk)
-        self.rasterizer = check_rasterizer(cfg.pipeline.rasterizer)
+                fields["anchor"][:, 2], n_i, self.gop_frame_zs[i],
+                self.gcfg.threshold))
+        # the densify epochs' voxel size as JAX's fit_gops takes it
         self.voxel_size = cfg.model.voxel_size or 0.001
-        self.adam = adam_init((self.state.anchors, self.state.nets))
-        self.stats = init_stats(self.capacity, self.gcfg.n_offsets,
-                                self.device)
-        self.schedules = build_schedules(opt,
-                                         ste_binary=cfg.model.ste_binary)
-        self.controller = TrainingController(opt)
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed + gi)
-        ds = datasets[gi]
-        f8 = np.stack([np.clip(np.round(np.asarray(ds.images[i]) * 255.0),
-                               0, 255).astype(np.uint8)
-                       for i in range(ds.num_frames)]) \
-            if ds.images_u8 is None else np.asarray(ds.images_u8)
-        self.images = torch.from_numpy(np.ascontiguousarray(
-            f8.transpose(0, 3, 1, 2))).to(self.device)
-        self.flows = (None if ds.flows is None else torch.from_numpy(
-            np.stack([np.asarray(ds.flows[i], np.float32)
-                      for i in range(len(ds.flows))])).to(self.device))
         self._build_step()
 
-    def _build_step(self):
-        d0 = self.datasets[0]
-        self.step = make_gop_parallel_step(
-            self.gcfg, self.settings, self.window_cap,
-            self.cfg.optimization, width=d0.width, height=d0.height,
-            scale=d0.scale, x_min=d0.x_min, y_min=d0.y_min, mesh=self.gop_mesh,
-            rasterizer=self.rasterizer)
+    def _draw_frame(self, n_frames: int) -> int:
+        return [int(self.rng.integers(0, max(c - 1, 1)))
+                for c in self.gop_frames][self.gi]
 
-    def fit(self, iterations: Optional[int] = None,
-            metrics_writer=None) -> List[list]:
-        """The reference's whole schedule (TrainingController) with the
-        synchronised densify epochs; returns every GOP's loss/psnr
-        history (every 50 iterations and the last), on every rank."""
-        from gsvc_tpu_torch.train.fit import compute_window_cap
-
-        opt = self.cfg.optimization
-        total = iterations if iterations is not None else opt.iterations
-        datasets, g, gi = self.datasets, len(self.datasets), self.gi
-        reports = [[] for _ in range(g)]
-        h, w = datasets[0].height, datasets[0].width
-        self.controller.step()
-        for it in range(1, total + 1):
-            lrs = {n: fn(it) for n, fn in self.schedules.items()}
-            mode = self.controller.render_mode
-            if mode is None:
-                mode = GenerateMode.STE_ENTROPY
-            do_stats = self.controller.gaussian_statis
-            # every GOP's draw, in JAX's order, on every rank
-            fidx = [int(self.rng.integers(0, max(ds.num_frames - 1, 1)))
-                    for ds in datasets]
-            ds, f1 = datasets[gi], fidx[gi]
-            f2 = min(f1 + 1, ds.num_frames - 1)
-            flow = (torch.zeros((2, h, w), device=self.device)
-                    if self.flows is None
-                    else self.flows[min(f1, self.flows.shape[0] - 1)])
-            self.state, self.adam, self.stats, metrics = self.step(
-                self.state, self.adam, self.stats, lrs,
-                float(self.frame_zs[gi][f1]), float(self.frame_zs[gi][f2]),
-                self.images[f1], self.images[f2], flow, mode, do_stats,
-                generator=self.generator)
-            self.last_metrics = metrics
-
-            if self.controller.gaussian_adjust_anchor:
-                self.state, self.adam, self.stats, res, new_cap = \
-                    gop_densify_epoch(
-                        self.state, self.adam, self.stats, self.gop_mesh,
-                        self.cfg.model, opt, self.voxel_size, self.rng,
-                        self.gcfg.n_offsets, self.capacity)
-                rebuild = new_cap != self.capacity
-                self.capacity = new_cap
-                zs = _gather(self.state.anchors.anchor[:, 2], self.gop_mesh,
-                             "dp").cpu().numpy()
-                new_window = max(compute_window_cap(
-                    zs[i], res[i].n_active, self.frame_zs[i],
-                    self.gcfg.threshold) for i in range(g))
-                if new_window > self.window_cap:
-                    self.window_cap = new_window
-                    rebuild = True
-                if rebuild:
-                    self._build_step()
-                self.log(f"iter {it}: densify -> "
-                         f"{[r.n_active for r in res]} "
-                         f"(cap {self.capacity})")
-
-            if it % 50 == 0 or it == total:
-                got = _gather(torch.stack([metrics["loss"].detach(),
-                                           metrics["psnr"]]).float(),
-                              self.gop_mesh, "dp").cpu().numpy()
-                for i in range(g):
-                    reports[i].append({"iter": it, "loss": float(got[i, 0]),
-                                       "psnr": float(got[i, 1])})
-                if metrics_writer is not None:
-                    metrics_writer.write(it, loss=float(got[gi, 0]),
-                                         psnr=float(got[gi, 1]),
-                                         n_active=self.state.n_active)
-                self.log(f"iter {it}: mode={mode.name} "
-                         f"losses={np.round(got[:, 0], 5).tolist()}")
-            self.controller.step()
-        return reports
+    def _densify(self):
+        k = self.gcfg.n_offsets
+        self.state, self.adam, self.stats, res, cap = gop_densify_epoch(
+            self.state, self.adam, self.stats, self.gop_mesh,
+            self.cfg.model, self.cfg.optimization, self.voxel_size,
+            self.rng, k, self.capacity)
+        rebuild = cap != self.capacity
+        self.capacity = cap
+        zs = _gather(self.state.anchors.anchor[:, 2], self.gop_mesh,
+                     "dp").cpu().numpy()
+        new_window = max(compute_window_cap(
+            zs[i], r.n_active, self.gop_frame_zs[i], self.gcfg.threshold)
+            for i, r in enumerate(res))
+        if new_window > self.window_cap:
+            self.window_cap = new_window
+            rebuild = True
+        if rebuild:
+            self._build_step()
+        self.log(f"densify of every GOP -> {[r.n_active for r in res]} "
+                 f"(cap {self.capacity})")
+        return res[self.gi]
 
 
 def fit_gops(mesh: Mesh, cfg, datasets, iterations: Optional[int] = None,
              seed: int = 0, log_fn=None, device=None):
-    """Fit one independent model per GOP, one GOP a dp rank (the
-    library-level counterpart of cli/train.py's sequential
-    ``_train_segmented`` loop).  ``datasets``: one FrameCubeDataset per
-    GOP, equal frame geometry; ``len(datasets)`` must equal dp.  Returns
-    (states, reports): every GOP's final ModelState and loss/psnr
-    history, on every rank."""
-    fan = GopFanout(mesh, cfg, datasets, seed=seed, log_fn=log_fn,
-                    device=device)
-    reports = fan.fit(iterations)
-    return unstack_states(stack_states(fan.state, mesh), len(datasets)), \
-        reports
+    """Fit one independent model per GOP, one GOP a dp rank
+    (``GopRankFitter``; the library-level counterpart of cli/train.py's
+    sequential ``_train_segmented`` loop).  ``datasets``: one
+    FrameCubeDataset per GOP, equal frame geometry; ``len(datasets)``
+    must equal dp.  Returns (states, reports): every GOP's final
+    ModelState and loss/psnr history (every 50 iterations and the last),
+    on every rank."""
+    fitter = GopRankFitter(mesh, cfg, datasets, seed=seed, log_fn=log_fn,
+                           device=device)
+    rep = fitter.fit(iterations, log_every=50)
+    mine = [{k: h[k] for k in ("iter", "loss", "psnr")}
+            for h in rep.history]
+    if not mine or mine[-1]["iter"] != rep.iterations:
+        mine.append({"iter": rep.iterations, "loss": rep.loss,
+                     "psnr": rep.psnr})
+    reports = [None] * len(datasets)
+    dist.all_gather_object(reports, mine, group=mesh.groups["dp"])
+    return unstack_states(stack_states(fitter.state, mesh),
+                          len(datasets)), reports

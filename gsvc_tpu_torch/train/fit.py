@@ -121,21 +121,24 @@ class GOPFitter:
     rank of a ``mesh`` (``parallel/spmd.py:make_mesh``).
 
     ``device`` defaults to ``cuda`` and raises without a card; ``cpu``
-    runs the plain PyTorch versions of the kernels (the tests)."""
+    runs the plain PyTorch versions of the kernels (the tests).  ``rng``:
+    the host generator of the point cloud, the frame draws and the densify
+    epochs (default ``default_rng(seed)``; the GOP fan-out shares one)."""
 
     MAX_GAUSSIAN_CAP = 4096
     MAX_TILES_PER_GAUSSIAN = 128
 
     def __init__(self, cfg: Config, dataset: FrameCubeDataset,
                  seed: int = 0, log_fn: Optional[Callable] = None,
-                 device=None, mesh=None):
+                 device=None, mesh=None,
+                 rng: Optional[np.random.Generator] = None):
         self.cfg = cfg
         self.dataset = dataset
         self.device = resolve_device(device)
         self.gcfg = GaussianConfig.from_model_config(cfg.model)
         self.log = log_fn or (lambda *a, **k: None)
         self.seed = seed
-        self.rng = np.random.default_rng(seed)
+        self.rng = rng if rng is not None else np.random.default_rng(seed)
         self.mesh = mesh
         self.n_dp = mesh.size("dp") if mesh is not None else 1
         self.n_sp = mesh.size("sp") if mesh is not None else 1
@@ -666,19 +669,21 @@ class GOPFitter:
                  f"masks={est.bit_masks / mb:.3f} "
                  f"mlp={est.bit_mlp / mb:.3f} total={est.total / mb:.3f}")
 
+    def _draw_frame(self, n_frames: int) -> int:
+        """The step's first frame: one draw from ``self.rng`` per dp group
+        (one without a mesh), drawn alike on every rank; this rank takes
+        its group's."""
+        dp = self.mesh.dp_index if self.mesh is not None else 0
+        return [int(self.rng.integers(0, max(n_frames - 1, 1)))
+                for _ in range(self.n_dp)][dp]
+
     def _run_single(self, it: int, n_frames: int):
         """One iteration: draw the frame pair, run the step."""
         mode = self.controller.render_mode
         if mode is None:  # past the schedule (GenerateMode 0 is falsy)
             mode = GenerateMode.STE_ENTROPY
         do_stats = self.controller.gaussian_statis
-        if self.mesh is not None:
-            # one different frame pair per dp group, drawn alike on every
-            # rank; this rank takes its group's
-            fidx = [int(self.rng.integers(0, max(n_frames - 1, 1)))
-                    for _ in range(self.n_dp)][self.mesh.dp_index]
-        else:
-            fidx = int(self.rng.integers(0, max(n_frames - 1, 1)))
+        fidx = self._draw_frame(n_frames)
         f2 = min(fidx + 1, n_frames - 1)
         fi = min(fidx, self.flows[0].shape[0] - 1)
         self.state, self.adam, self.stats, metrics = self.train_step(

@@ -155,6 +155,10 @@ def load_checkpoint(path: str, fitter) -> int:
         fitter.state = shard_model_state(fitter.state, mesh)
         fitter.adam = shard_adam_state(fitter.adam, mesh)
         fitter.stats = shard_train_stats(fitter.stats, mesh)
+        # each rank windows its own slab (a single-GPU file's window may
+        # be wider than one)
+        fitter.window_cap = min(fitter.window_cap,
+                                fitter.capacity // mesh.size("sp"))
     fitter.controller.current_iteration = p["controller_iteration"]
     fitter.rng.bit_generator.state = p["np_rng"]
     if "torch_generator" in p:

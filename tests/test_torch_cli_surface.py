@@ -171,8 +171,8 @@ def test_multi_gpu_options_run(segmented, tmp_path):
     flows included) writes into each ``gop_*`` the artifacts of the
     sequential run above.  ``--mesh`` runs in
     tests/test_torch_train.py, ``pipeline.mesh_shape`` in
-    tests/test_torch_gop_parallel.py."""
-    from tests.test_torch_gop_parallel import run_cli
+    tests/test_torch_multirank_cli.py."""
+    from tests.test_torch_multirank_cli import run_cli
 
     root, _ = segmented
     out = tmp_path / "fanout"

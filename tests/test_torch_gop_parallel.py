@@ -10,26 +10,19 @@
   moments and statistics, the shared capacity and the results exactly,
   and the shared generator's state after the epoch equal to JAX's (its
   draws are taken GOP by GOP on every rank, as JAX takes them).
-* The CLI on the 6-frame synthetic GOP of the verify notes, on the CPU
-  through its own spawner and with JAX blocked: ``pipeline.mesh_shape``
-  dp=2,sp=2 with ``--skip_codec``, resumed from a single-GPU checkpoint,
-  whose final
-  checkpoint loads into a single-GPU ``GOPFitter`` (capacity a multiple
-  of sp), and ``--gop_size 3 --gop_parallel`` with the codec: every
-  ``gop_*`` file of the sequential run and JAX's summary keys with
-  ``"mesh"``.
+* ``fit_gops`` for two iterations of two GOPs against JAX's: the shared
+  generator's state, capacity and ``window_cap``, the anchor counts and
+  the reported losses (each GOP's nets transplanted from JAX's init).
+
+The multi-rank CLI runs in tests/test_torch_multirank_cli.py.
 """
 
-import json
 import pathlib
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from PIL import Image
 
 from gsvc_tpu.config import ModelConfig as JaxModelConfig
 from gsvc_tpu.config import OptimizationConfig as JaxOpt
@@ -44,9 +37,7 @@ from gsvc_tpu.train.optim import adam_init as jax_adam_init
 from gsvc_tpu.train.schedules import build_schedules as jax_schedules
 from gsvc_tpu.train.trainer import init_stats as jax_init_stats
 from tests.test_model import make_state
-from tests.test_torch_spmd import run_ranks
-from tests.test_torch_train import _configs
-from tests.test_train import synthetic_video
+from tests.test_torch_spmd import start_ranks, wait_ranks
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 GEOM = dict(x_min=-0.4, y_min=-0.4, scale=20.0)
@@ -56,6 +47,8 @@ TINY = dict(anchor_feature_dim=8, n_offsets=4, threshold=0.15,
             time_multi_res=4, offset_multi_res=4, log2=6, log2_2D=7,
             grid_feature_dim=2, resolutions_list=(6, 10),
             resolutions_list_2D=(12, 20))
+FIT_PIPE = dict(tile_h=8, tile_w=16, visible_capacity=64, gaussian_chunk=16)
+FIT_OPT = dict(iterations=2, init_anchor_num=64)
 
 _JOB = r"""
 def run(rank, job):
@@ -119,22 +112,106 @@ def run(rank, job):
     per = spmd.unstack_states(stacked, 2)
     out["unstacked_rows"] = [p.anchors.anchor.shape[0] for p in per]
 
-    # the library entry: two FULL_PRECISION iterations of two GOPs
+    # the library entry: two FULL_PRECISION iterations of two GOPs, each
+    # GOP's model with the nets JAX's fit_gops drew from the seed that the
+    # port's init asks for (a wrong seed takes another GOP's nets)
     from gsvc_tpu_torch.config import Config, PipelineConfig
     from gsvc_tpu_torch.framecube.frame import FrameCubeDataset
+    from gsvc_tpu_torch.models.gaussians import NetParams, map_tree
+    from gsvc_tpu_torch.train import fit as fit_mod
 
-    fcfg = Config(model=mc, pipeline=PipelineConfig(
-        tile_h=8, tile_w=16, visible_capacity=64, gaussian_chunk=16),
-        optimization=OptimizationConfig(iterations=2, init_anchor_num=64))
-    videos = np.random.default_rng(2).integers(0, 256, (2, 3, 16, 16, 3),
-                                               dtype=np.uint8)
+    real_init, real_fit = fit_mod.init_model, fit_mod.GOPFitter.fit
+
+    def init_model(gen, *a, **k):
+        st = real_init(gen, *a, **k)
+        nets = job["fit_gops"]["nets"][gen.initial_seed()]
+        return st._replace(nets=NetParams(**{
+            f: map_tree(lambda x: torch.from_numpy(np.array(x)), nets[f])
+            for f in NetParams._fields}))
+
+    fitters = []
+
+    def fit(self, *a, **k):
+        fitters.append(self)
+        return real_fit(self, *a, **k)
+
+    fit_mod.init_model, fit_mod.GOPFitter.fit = init_model, fit
+    fcfg = Config(model=mc, pipeline=PipelineConfig(**job["fit_gops"]["pipe"]),
+                  optimization=OptimizationConfig(**job["fit_gops"]["opt"]))
     states, reports = spmd.fit_gops(
-        mesh, fcfg, [FrameCubeDataset(images=v) for v in videos],
+        mesh, fcfg, [FrameCubeDataset(images=v)
+                     for v in job["fit_gops"]["videos"]],
         iterations=2, device="cpu")
+    (f,) = fitters
+    window_caps = [None, None]
+    dist.all_gather_object(window_caps, f.window_cap)
     out["fit_gops"] = {"n": [s.n_active for s in states],
-                       "reports": reports}
+                       "reports": reports, "rng": f.rng.bit_generator.state,
+                       "window_cap": window_caps,
+                       "capacity": f.capacity}
     return out
 """
+
+
+def _jax_init_nets(n_gops: int) -> dict:
+    """The nets JAX's ``init_model`` draws from ``PRNGKey(seed)`` for
+    seeds 0 .. n_gops - 1 (they depend on the key alone)."""
+    from gsvc_tpu.models.gaussians import GaussianConfig as JaxGaussianConfig
+    from gsvc_tpu.models.gaussians import init_model as jax_init_model
+
+    gcfg = JaxGaussianConfig.from_model_config(JaxModelConfig(**TINY))
+    pts = np.zeros((1, 3), np.float32)
+    return {s: jax.tree.map(np.asarray, jax_init_model(
+        jax.random.PRNGKey(s), gcfg, pts, 1024).nets._asdict())
+        for s in range(n_gops)}
+
+
+def _jax_fit_gops(videos):
+    """JAX's ``fit_gops`` for two iterations of two GOPs, recording the
+    ``window_cap`` its step is built with, its generator's state after
+    the fit and each GOP's initial nets (the recorders wrap the JAX
+    package's functions for this call only)."""
+    import gsvc_tpu.models.gaussians as jg
+    import gsvc_tpu.parallel.spmd as js
+    from gsvc_tpu.config import Config as JaxConfig
+    from gsvc_tpu.config import PipelineConfig as JaxPipeline
+    from gsvc_tpu.framecube import FrameCubeDataset as JaxDataset
+
+    seen = {"window_cap": [], "rng": [], "nets": []}
+    real_step, real_init = js.make_gop_parallel_step, jg.init_model
+    real_rng = np.random.default_rng
+
+    def step(gcfg, settings, window_cap, *a, **k):
+        seen["window_cap"].append(window_cap)
+        return real_step(gcfg, settings, window_cap, *a, **k)
+
+    def init_model(key, *a, **k):
+        st = real_init(key, *a, **k)
+        seen["nets"].append(jax.tree.map(np.asarray, st.nets._asdict()))
+        return st
+
+    def default_rng(*a, **k):
+        g = real_rng(*a, **k)
+        seen["rng"].append(g)
+        return g
+
+    cfg = JaxConfig(model=JaxModelConfig(**TINY),
+                    pipeline=JaxPipeline(**FIT_PIPE),
+                    optimization=JaxOpt(**FIT_OPT))
+    datasets = [JaxDataset(images=v.astype(np.float32) / 255.0)
+                for v in videos]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(js, "make_gop_parallel_step", step)
+        mp.setattr(jg, "init_model", init_model)
+        mp.setattr(np.random, "default_rng", default_rng)
+        states, reports = js.fit_gops(
+            jax_mesh(2, 1, devices=jax.devices()[:2]), cfg, datasets,
+            iterations=2, seed=0)
+    return {"n": [int(s.n_active) for s in states], "reports": reports,
+            "rng": seen["rng"][0].bit_generator.state,
+            "window_cap": seen["window_cap"],
+            "capacity": int(states[0].anchors.anchor.shape[0]),
+            "nets": dict(enumerate(seen["nets"]))}
 
 
 @pytest.fixture(scope="module")
@@ -201,10 +278,19 @@ def fanout(tmp_path_factory):
             "cap": d_cap, "rng": rng.bit_generator.state,
             "results": [(r.n_grown, r.n_pruned, r.n_active)
                         for r in d_res]}}
-    port = run_ranks(tmp, 2, _JOB, {
+    videos = np.random.default_rng(2).integers(0, 256, (2, 3, 16, 16, 3),
+                                               dtype=np.uint8)
+    nets = _jax_init_nets(2)
+    # the ranks run while JAX fits the two GOPs
+    ranks = start_ranks(tmp, 2, _JOB, {
         "model": TINY, "opt": OPT, "geom": GEOM, "gts": gts,
-        "states": [initial(s) for s in states], "densify": post})
-    return jax_out, port
+        "states": [initial(s) for s in states], "densify": post,
+        "fit_gops": {"videos": videos, "pipe": FIT_PIPE, "opt": FIT_OPT,
+                     "nets": nets}})
+    jax_out["fit_gops"] = _jax_fit_gops(videos)
+    for s_, got in jax_out["fit_gops"]["nets"].items():
+        jax.tree.map(np.testing.assert_array_equal, got, nets[s_])
+    return jax_out, wait_ranks(ranks)
 
 
 def test_gop_parallel_step_losses_match_jax(fanout):
@@ -254,143 +340,22 @@ def test_fit_gops_runs_every_gop(fanout):
     assert got["reports"][0] != got["reports"][1]
 
 
-# ---------------------------------------------------------------------------
-# The CLI, spawning its own ranks
-# ---------------------------------------------------------------------------
-
-_BLOCKED_CLI = r"""
-import importlib.abc, sys
-
-class Block(importlib.abc.MetaPathFinder):
-    def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "gsvc_tpu"):
-            raise ImportError("blocked: " + name)
-        return None
-
-sys.meta_path.insert(0, Block())
-if __name__ == "__main__":
-    sys.path.insert(0, sys.argv[1])
-    from gsvc_tpu_torch.cli.train import main
-    main(sys.argv[2:])
-"""
-
-
-def run_cli(tmp_path: pathlib.Path, args: list, timeout: float = 150.0):
-    """``cli.train.main(args)`` in a subprocess with JAX and the JAX
-    package blocked; the ranks it spawns re-import this script as their
-    main module, so the block holds in them too."""
-    script = tmp_path / "blocked_cli.py"
-    script.write_text(_BLOCKED_CLI)
-    env = {"PATH": "/usr/bin:/bin", "HOME": str(tmp_path),
-           "OMP_NUM_THREADS": "1", "PYTHONPATH": str(REPO)}
-    res = subprocess.run([sys.executable, str(script), str(REPO), *args],
-                         capture_output=True, text=True, timeout=timeout,
-                         env=env)
-    assert res.returncode == 0, res.stderr[-4000:]
-    return res
-
-
-@pytest.fixture(scope="module")
-def video(tmp_path_factory):
-    """The verify notes' 6-frame 48x64 synthetic GOP as PNGs, and the
-    tiny model with a six-iteration four-phase schedule (a densify epoch
-    at iteration 4)."""
-    root = tmp_path_factory.mktemp("video")
-    src = root / "frames"
-    src.mkdir()
-    frames = np.round(synthetic_video(t=6, h=48, w=64) * 255).astype(
-        np.uint8)
-    for i, fr in enumerate(frames):
-        Image.fromarray(fr).save(src / f"f_{i:03d}.png")
-    _, pcfg = _configs()
-    o = pcfg.optimization
-    o.iterations = 6
-    o.full_precision_training_total = 2
-    o.quantized_training_total = 1
-    o.entropy_constrained_train_total = 2
-    o.ste_entropy_constrained_train_total = 1
-    o.pause_densification = 1
-    o.update_from = 1
-    o.update_interval = 4
-    o.min_opacity = 0.0
-    from gsvc_tpu_torch.config import save_config
-    save_config(pcfg, str(root / "small.yaml"))
-    return root, frames, pcfg
-
-
-def test_cli_mesh_resumes_a_single_gpu_checkpoint(video, tmp_path):
-    """``pipeline.mesh_shape`` (``--set pipeline.mesh_shape=dp=2,sp=2``,
-    which ``--mesh`` overrides; ``--mesh`` runs in
-    tests/test_torch_train.py) with ``--skip_codec``, from a single-GPU
-    checkpoint at iteration 0: four spawned ranks fit the six iterations
-    (a densify epoch included); the mesh checkpoint loads into a
-    single-GPU fitter, whose evaluation of frame 0 is finite."""
-    from gsvc_tpu_torch.framecube.frame import FrameCubeDataset
-    from gsvc_tpu_torch.train.fit import GOPFitter
-    from gsvc_tpu_torch.utils.checkpoint import (
-        load_checkpoint, read_checkpoint, save_checkpoint,
-    )
-
-    root, frames, pcfg = video
-    single = GOPFitter(pcfg, FrameCubeDataset(images=frames), seed=0,
-                       device="cpu")
-    start = tmp_path / "single0.pkl"
-    save_checkpoint(str(start), single, 0)
-    out = tmp_path / "out_mesh"
-    run_cli(tmp_path, [
-        "--source_path", str(root / "frames"), "--model_path", str(out),
-        "--config_path", str(root / "small.yaml"), "--device", "cpu",
-        "--skip_codec", "--set", "pipeline.mesh_shape=dp=2,sp=2",
-        "--checkpoint", str(start)])
-    got = json.loads((out / "results.json").read_text())
-    assert got["iterations"] == 6 and np.isfinite(got["fit_psnr"])
-    assert set(got) == {"fit_psnr", "iterations", "n_anchors", "device"}
-    log = (out / "output.log").read_text()
-    assert "dp=2 x sp=2" in log and "backend gloo" in log
-    assert "densify +" in log
-    assert "resumed from" in log
-    for name in ("cfg_args.yaml", "metrics.jsonl", "chkpnt_final.pkl",
-                 "point_cloud/final/point_cloud.ply",
-                 "point_cloud/final/networks.pkl"):
-        assert (out / name).exists(), name
-    ck = read_checkpoint(str(out / "chkpnt_final.pkl"))
-    assert ck["capacity"] % 2 == 0 and ck["n_active"] == got["n_anchors"]
-    assert ck["anchors"]["anchor"].shape[0] == ck["capacity"]
-    assert ck["adam_step"] == 6
-    back = GOPFitter(pcfg, FrameCubeDataset(images=frames), seed=0,
-                     device="cpu")
-    assert load_checkpoint(str(out / "chkpnt_final.pkl"), back) == 6
-    np.testing.assert_array_equal(back.state.anchors.feat.numpy(),
-                                  ck["anchors"]["feat"])
-    assert np.isfinite(back.evaluate(frames=[0])["psnr"])
-
-
-def test_cli_gop_parallel_with_codec(video, tmp_path):
-    """``--gop_size 3 --gop_parallel``: two spawned ranks, one GOP each;
-    each ``gop_*`` holds what the sequential run writes there, and the
-    summary JAX's keys with ``"gops": 2`` and the mesh."""
-    root, _, _ = video
-    out = tmp_path / "out_gop"
-    run_cli(tmp_path, [
-        "--source_path", str(root / "frames"), "--model_path", str(out),
-        "--config_path", str(root / "small.yaml"), "--device", "cpu",
-        "--gop_size", "3", "--gop_parallel"])
-    summary = json.loads((out / "results.json").read_text())
-    assert set(summary) == {"gops", "mesh", "mean_psnr", "mean_bpp",
-                            "per_gop"}
-    assert summary["gops"] == 2 and summary["mesh"] == {"dp": 2, "sp": 1}
-    for g, start in enumerate((0, 3)):
-        d = out / f"gop_{start:05d}"
-        for name in ("bitstreams", "results.json", "metrics.jsonl",
-                     "cfg_args.yaml", "chkpnt_final.pkl", "output.log",
-                     "point_cloud/final/point_cloud.ply",
-                     "point_cloud/final/networks.pkl"):
-            assert (d / name).exists(), f"{d.name}/{name}"
-        res = json.loads((d / "results.json").read_text())
-        assert res == summary["per_gop"][g]
-        assert res["bpp"] > 0 and np.isfinite(res["decoded_psnr"])
-        assert res["iterations"] == 6
-    assert summary["per_gop"][0]["n_anchors"] != \
-        summary["per_gop"][1]["n_anchors"] or \
-        summary["per_gop"][0]["decoded_psnr"] != \
-        summary["per_gop"][1]["decoded_psnr"]
+def test_fit_gops_matches_jax(fanout):
+    """``fit_gops`` against JAX's on the same two videos: the shared
+    generator's state after the fit (the point clouds GOP by GOP, then
+    every step's frame draw for every GOP), the shared capacity and
+    ``window_cap``, each GOP's anchor count, and the reported losses and
+    PSNRs at rtol 1e-3 (as the mesh fitter's in tests/test_torch_spmd.py;
+    each GOP starts from the nets JAX drew from ``PRNGKey(seed + gi)``)."""
+    j, p = fanout[0]["fit_gops"], fanout[1]["fit_gops"]
+    assert p["rng"] == j["rng"]
+    assert p["capacity"] == j["capacity"]
+    assert p["window_cap"] == [j["window_cap"][-1]] * 2
+    assert p["n"] == j["n"]
+    for g in range(2):
+        assert [r["iter"] for r in p["reports"][g]] == \
+            [r["iter"] for r in j["reports"][g]] == [2]
+        for key in ("loss", "psnr"):
+            np.testing.assert_allclose(p["reports"][g][0][key],
+                                       j["reports"][g][0][key], rtol=1e-3,
+                                       err_msg=f"GOP {g} {key}")

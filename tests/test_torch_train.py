@@ -473,7 +473,7 @@ def test_cli_runs_multi_rank_options_with_jax_blocked(tmp_path):
     tests/test_torch_gop_parallel.py."""
     import json
     from gsvc_tpu_torch.utils.checkpoint import read_checkpoint
-    from tests.test_torch_gop_parallel import run_cli
+    from tests.test_torch_multirank_cli import run_cli
 
     src, cfg = _cli_inputs(tmp_path, _video_u8())
     out = tmp_path / "out"
