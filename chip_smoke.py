@@ -39,7 +39,7 @@
    FULL_PRECISION, 4 QUANTIZED_NOISE, 6 ENTROPY and 6 STE_ENTROPY steps,
    statistics from step 3 on, densify epochs (the index-plan path) at
    steps 6, 12, 18 (FULL_PRECISION), 30 and 36; the fit's eval hook
-   scores all 600 frames every 8 steps (after steps 32 and 40 with STE
+   scores all 600 frames every 12 steps (after step 36 with STE
    rounding, through B3f), and the whole-model rate estimate runs after
    step 40.  The launch counts are reset just before and read just
    after: B1 and B2 must launch once per step, B3f/B3b once per entropy
@@ -61,6 +61,21 @@
    count and capacity before and after, the per-phase median step, the
    estimated bits, and times B1/B2 and their plain versions on one
    training pair's inputs against their bounds.
+5b. Precision phase (``precision_phase``): the compositing precision
+   modes of B1/B2 and B4 (render/mirror.py's table; PREC_MODES: float32
+   and compute_dtype "bfloat16", matmul_dtype "bf16x2" and "bfloat16",
+   and both "bfloat16").  In each mode B1/B2 on the fitted pair 299-300
+   and B4 on the slice phase's decoded frame 342 against their plain
+   versions in that mode (B1 and B4 to MAX_ABS_ERR, B2 to BWD_REL_ERR,
+   two B2 launches bit-identical), each timed alone (torch.profiler) and
+   by the call beside float32's, with its bound (FP32 work over the FP32
+   rate plus the alpha's bf16 work over the bf16 rate, or the bytes) and
+   its SASS instructions a pair; then a GOPFitter at the fixture's full
+   width runs the narrow phase's 12-step schedule with
+   pipeline.matmul_dtype "bfloat16" and two more steps in each other mode
+   (B1 and B2 once a step and no other composite, finite losses), and
+   evaluates four frames of the fitted state through B4 in every mode
+   (one launch a frame, each PSNR within PREC_PSNR_DB of float32's).
 6. Hash-grid phase: kernels B3f/B3b (``hashgrid_forward`` /
    ``hashgrid_backward``) against their plain versions on the fitted
    state's STE-binarised table (B3f bit for bit), at (a) the union window
@@ -183,7 +198,9 @@
    call, 20 back to back under CUDA events; ``kernel_ms``, B3f, B3b, B4,
    B5f, B5b, B6f and B6b: the kernel alone; ``launches``: the sum over
    the paths that were counted, each reset before and read after; the
-   multi-rank phase's summed over its ranks), then the result line.
+   multi-rank phase's summed over its ranks; B1, B2 and B4 once more for
+   each precision mode past float32, from the precision phase, with
+   ``sass_per_pair``), then the result line.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 Frames are written nowhere; the checkpoint goes to a temporary directory.
@@ -195,6 +212,12 @@ fits the training phase's model under the schedule variants of FIT_STUDY
 (seeds, with and without the densify epoch, longer FULL_PRECISION,
 ``lmbda`` 0) and prints the mean PSNR of the 600 frames every 6 steps,
 one JSON line per fit.
+
+    python3 chip_smoke.py --kernel-times
+
+times float32 B1, B2 and B4 on the synthetic 1080p tiles (alone and by
+the call), one line: run from the roots of two trees in turns to compare
+their kernels on one card.
 """
 
 from __future__ import annotations
@@ -221,7 +244,9 @@ N_FRAMES = 8
 PHASES = (("FULL_PRECISION", 24), ("QUANTIZED_NOISE", 4), ("ENTROPY", 6),
           ("STE_ENTROPY", 6))
 TRAIN_STEPS = sum(n for _, n in PHASES)
-EVAL_EVERY = 8
+# the fit's 600-frame evaluations: after steps 12 and 24 (FULL_PRECISION:
+# the PSNR rise) and 36 (STE_ENTROPY: B3f per evaluated frame)
+EVAL_EVERY = 12
 # the mean PSNR of the 600 frames must rise by this much (dB) over the
 # FULL_PRECISION steps.  Which frame pairs a short fit draws moves the
 # 600-frame mean: 12 steps rose by -0.26 to +0.61 dB over three seeds
@@ -366,12 +391,13 @@ def paired_ms(fa, fb, iters: int):
     return (a1 + a2) / 2, (b1 + b2) / 2
 
 
-def bound_ms(n_bytes: int, flops: float):
+def bound_ms(n_bytes: int, flops: float, bf16_flops: float = 0.0):
     """(least ms, what bounds it): ``n_bytes`` (each input read once, each
     output written once) over HBM bandwidth, or ``flops`` FP32 operations
-    over peak."""
+    over the FP32 peak plus ``bf16_flops`` (a precision mode's bf16 alpha)
+    over the bf16 peak."""
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = flops / FP32_FLOP_PER_S
+    t_ops = flops / FP32_FLOP_PER_S + bf16_flops / BF16_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops > t_bytes
                                        else "bytes")
 
@@ -383,15 +409,18 @@ def nbytes(*tensors) -> int:
 def ptxas_report(text: str, lib: str):
     """One line per kernel of library ``lib``'s ``nvcc -Xptxas -v`` log:
     registers, shared memory, stack and spills (a kernel named
-    ``<lib>_kernel``, with its pixels per thread where it is a template)."""
+    ``<lib>_kernel``, with its template arguments: pixels a thread and,
+    for B1, B2 and B4, the precision mode's bits)."""
     lines, name, spill = [], None, ""
     for line in text.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             name = entry.group(1)
-            ppt = re.search(rf"{lib}_kernelILi(\d+)E", name)
+            args = re.search(rf"{lib}_kernelI((?:Li\d+E)+)E", name)
             if f"{lib}_kernel" in name:
-                name = f"{lib}_kernel" + (f"<{ppt.group(1)}>" if ppt else "")
+                name = f"{lib}_kernel" + (
+                    "<" + ", ".join(re.findall(r"Li(\d+)E", args.group(1)))
+                    + ">" if args else "")
         elif "spill" in line:
             spill = line.strip()
         elif "Used" in line and "registers" in line and name:
@@ -404,8 +433,8 @@ def ptxas_report(text: str, lib: str):
 # kernels at the training tiles' 8 pixels a thread; B4, B5f, B5b and the
 # stream kernels join them at the instantiations their launch plans take
 # (sass_kernels)
-SASS_KERNELS = (("B1", "mirror_fwd", "mirror_fwd_kernelILi8E"),
-                ("B2", "mirror_bwd", "mirror_bwd_kernelILi8E"))
+SASS_KERNELS = (("B1", "mirror_fwd", "mirror_fwd_kernelILi8ELi0EE"),
+                ("B2", "mirror_bwd", "mirror_bwd_kernelILi8ELi0EE"))
 # the card's SM clock (MHz, nvidia-smi clocks.max.sm), read in main
 SM_CLOCK_MHZ = None
 
@@ -416,16 +445,35 @@ def sass_kernels(bidir, stream, tile, decode_settings, train_settings):
     gives, and how a pair meets the loops: "each" (a pair runs in one of
     them: B4's front or back loop, a view's copy of a loop) or "sum"
     (every replayed pair runs in each: a backward that walks a chunk
-    twice)."""
+    twice); then B1, B2 and B4 in every mode of PREC_MODES ("B1
+    bfloat16/float32", ...) with their exponentials a pair."""
     ppt4 = bidir.bidir_launch_plan(decode_settings)[2]
     ppt5 = tile.launch_shape(train_settings)[1]
     ppt6 = stream.launch_shape(train_settings)[1]
+    modes = []
+    for mode in PREC_MODES:
+        # the mode's template argument (render/bidir.py check_precision),
+        # and its exponentials a pair: the alpha's, and in matmul_dtype
+        # "bfloat16" the copy's transmittance factor's
+        bits = bidir.check_precision(with_mode(train_settings, mode),
+                                     "B1/B2")
+        fwd = bits & (bidir.ALPHA_BF16 | bidir.TRANS_BF16)
+        ex2 = 2 if bits & bidir.TRANS_BF16 else 1
+        name = mode_name(mode)
+        modes += [
+            (f"B1 {name}", "mirror_fwd",
+             f"mirror_fwd_kernelILi8ELi{fwd}EE", "each", ex2),
+            (f"B2 {name}", "mirror_bwd",
+             f"mirror_bwd_kernelILi8ELi{bits}EE", "each", ex2),
+            (f"B4 {name}", "bidir", f"bidir_kernelILi{ppt4}ELi{fwd}EE",
+             "each", ex2)]
     return tuple((*k, "each") for k in SASS_KERNELS) + (
         ("B6f", "stream_fwd", f"stream_fwd_kernelILi{ppt6}E", "each"),
         ("B6b", "stream_bwd", f"stream_bwd_kernelILi{ppt6}E", "each"),
-        ("B4", "bidir", f"bidir_kernelILi{ppt4}E", "each"),
+        ("B4", "bidir", f"bidir_kernelILi{ppt4}ELi0EE", "each"),
         ("B5f", "tile_fwd", f"tile_fwd_kernelILi{ppt5}E", "each"),
-        ("B5b", "tile_bwd", f"tile_bwd_kernelILi{ppt5}E", "sum"))
+        ("B5b", "tile_bwd", f"tile_bwd_kernelILi{ppt5}E", "sum")) \
+        + tuple(modes)
 
 
 def sass_loops(sass: str, kernel: str):
@@ -477,22 +525,28 @@ def sass_floors(build, kernels):
     innermost loop that evaluates alphas over its MUFU.EX2 count (one per
     pair).  A design that walks a chunk twice has a loop per walk, and
     the compiler may keep a copy of a loop per view (forward, flip), so
-    the line lists every loop.  Prints "not measured" without
-    ``cuobjdump``.  Returns {label: (least, most) instructions a pair}:
-    over the loops ("each"), or their sum both times ("sum")."""
+    the line lists every loop.  An entry's optional fifth field is its
+    MUFU.EX2 a pair (1 by default; 2 where matmul_dtype "bfloat16" takes
+    an exponential for the copy's transmittance factor).  Prints "not
+    measured" without ``cuobjdump``.  Returns {label: (least, most)
+    instructions a pair}: over the loops ("each"), or their sum both times
+    ("sum")."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not pathlib.Path(tool).exists():
         log("sass: cuobjdump not found; instructions per pair not measured")
         return {}
     per_pair = {}
-    for label, lib, kernel, how in kernels:
-        sass = subprocess.run([tool, "-sass", str(build._target(lib))],
-                              capture_output=True, text=True).stdout
-        loops = sass_loops(sass, kernel)
+    dumps = {}
+    for label, lib, kernel, how, *ex2pp in kernels:
+        if lib not in dumps:
+            dumps[lib] = subprocess.run(
+                [tool, "-sass", str(build._target(lib))],
+                capture_output=True, text=True).stdout
+        loops = sass_loops(dumps[lib], kernel)
         if not loops:
             log(f"sass: {label} ({kernel}): no loop found; not measured")
             continue
-        ipp = [n / ex2 for n, ex2, _ in loops]
+        ipp = [n * (ex2pp[0] if ex2pp else 1) / ex2 for n, ex2, _ in loops]
         per_pair[label] = ((sum(ipp),) * 2 if how == "sum"
                            else (min(ipp), max(ipp)))
         log(f"sass: {label} ({kernel}): inner loops (instructions, "
@@ -1270,6 +1324,248 @@ def training_phase(dec, bidir, mirror, hk):
     b2.update(launches=launches[1], max_abs_err=b_err,
               step_ms=fp["B2+scatter"])
     return b1, b2, launches[2:], fitter, frames
+
+
+# the compositing precision modes of B1/B2 and B4 (render/mirror.py's
+# table), float32 first; (compute_dtype, matmul_dtype)
+PREC_MODES = (("float32", "float32"), ("bfloat16", "float32"),
+              ("float32", "bf16x2"), ("float32", "bfloat16"),
+              ("bfloat16", "bfloat16"))
+# the precision phase's fit: matmul_dtype "bfloat16" for the schedule's
+# 12 steps, then PREC_EXTRA_STEPS in each other mode
+PREC_FIT_MODE = ("float32", "bfloat16")
+PREC_EXTRA_STEPS = 2
+# frames of the fitted state evaluated through B4 in every mode, and how
+# far (dB) a mode's PSNR may lie from float32's on the same state (the
+# modes' images lie within JAX's 2e-2 band of float32's; at the fitted
+# state's ~12 dB a uniform 2e-2 error would move the PSNR ~0.1 dB)
+PREC_EVAL_FRAMES = (0, 199, 399, 599)
+PREC_PSNR_DB = 0.2
+# H100 SXM's non-tensor bf16 rate: twice its FP32 rate (NVIDIA data sheet)
+BF16_FLOP_PER_S = 2 * FP32_FLOP_PER_S
+# of a pair's least work: what compute_dtype "bfloat16" moves to bf16 (the
+# quadratic form, exponent scale and opacity: 10 of the alpha's 15), and
+# what matmul_dtype "bfloat16" adds in FP32 (log1p, exp and the product
+# of a copy's factor: 3)
+ALPHA_BF16_FLOPS = 10
+TRANS_BF16_FLOPS = 3
+
+
+def mode_name(mode) -> str:
+    return f"{mode[0]}/{mode[1]}"
+
+
+def with_mode(settings, mode):
+    import dataclasses
+
+    return dataclasses.replace(settings, compute_dtype=mode[0],
+                               matmul_dtype=mode[1])
+
+
+def mode_flops(mode, pairs: int, per_pair: int):
+    """(FP32, bf16) operations of ``pairs`` pairs of ``per_pair`` FP32
+    operations in float32, in ``mode``."""
+    bf = ALPHA_BF16_FLOPS if mode[0] == "bfloat16" else 0
+    extra = TRANS_BF16_FLOPS if mode[1] == "bfloat16" else 0
+    return pairs * (per_pair - bf + extra), pairs * bf
+
+
+def precision_kernels(mirror, bidir, settings, pair, dec_settings, frame):
+    """B1/B2 on the fitted pair and B4 on the decoded frame in every mode
+    of PREC_MODES: each against its plain version in that mode (B1 and
+    B4 to MAX_ABS_ERR, B2 to BWD_REL_ERR; two B2 launches bit-identical),
+    timed alone (torch.profiler) and by the call beside its plain version,
+    its bound (FP32 work over the FP32 rate plus bf16 work over the bf16
+    rate, or the bytes) and its SASS instructions a pair.  Returns
+    {(kernel, mode): numbers}."""
+    attrs, lists, counts = pair
+    fa, fl, fc = frame
+    out = {}
+    for mode in PREC_MODES:
+        s = with_mode(settings, mode)
+        label = f"precision phase ({mode_name(mode)}, frames 299-300)"
+        f_err, b_err, pf, pb, aux = mirror_check(mirror, s, attrs, lists,
+                                                 counts, label)
+        b1, b2 = mirror_times(mirror, s, attrs, lists, counts, aux, pf, pb,
+                              label)
+        out_p, chk_p, g_out, gr_p = aux
+        b1["kernel_ms"] = kernel_ms(lambda: mirror.mirror_fwd_cuda(
+            s, attrs, lists, counts), "mirror_fwd_kernel", 10)[0]
+        b2["kernel_ms"] = kernel_ms(lambda: mirror.mirror_bwd_cuda(
+            s, attrs, lists, counts, out_p, chk_p, g_out),
+            "mirror_bwd_kernel", 5)[0]
+        ins = nbytes(attrs, lists, counts)
+        b1["bound_ms"], b1["bound_by"] = bound_ms(
+            ins + nbytes(out_p, chk_p), *mode_flops(mode, pf,
+                                                    FLOPS_PER_PAIR))
+        b2["bound_ms"], b2["bound_by"] = bound_ms(
+            ins + nbytes(chk_p, g_out, gr_p), *mode_flops(
+                mode, pb, FLOPS_PER_BWD_PAIR))
+        b1["max_abs_err"], b2["max_abs_err"] = f_err, b_err
+
+        ds = with_mode(dec_settings, mode)
+        out_k = bidir.bidir_out4_cuda(ds, fa, fl, fc)
+        out_b, pairs = bidir.bidir_out4_plain(ds, fa, fl, fc)
+        torch.cuda.synchronize()
+        err = float((out_k - out_b).abs().max())
+        if not np.isfinite(err) or err > MAX_ABS_ERR:
+            raise AssertionError(f"precision phase ({mode_name(mode)}): B4 "
+                                 f"disagrees with its plain version: {err}"
+                                 f" > {MAX_ABS_ERR}")
+        b4 = dict(max_abs_err=err,
+                  ms=cuda_ms(lambda: bidir.bidir_out4_cuda(ds, fa, fl, fc),
+                             20),
+                  kernel_ms=kernel_ms(lambda: bidir.bidir_out4_cuda(
+                      ds, fa, fl, fc), "bidir_kernel", 20)[0],
+                  plain_ms=cuda_ms(lambda: bidir.bidir_out4_plain(
+                      ds, fa, fl, fc), 2))
+        b4["bound_ms"], b4["bound_by"] = bound_ms(
+            nbytes(fa, fl, fc, out_k), *mode_flops(mode, pairs,
+                                                   FLOPS_PER_PAIR))
+        for name, d in (("B1", b1), ("B2", b2), ("B4", b4)):
+            d["sass"] = SASS_PER_PAIR.get(f"{name} {mode_name(mode)}")
+            out[(name, mode)] = d
+        f32 = {k: out[(k, PREC_MODES[0])] for k in ("B1", "B2", "B4")}
+        for name, d in (("B1", b1), ("B2", b2), ("B4", b4)):
+            sass = ("not measured" if d["sass"] is None else
+                    "-".join(f"{v:.1f}" for v in sorted(set(d["sass"]))))
+            log(f"precision phase ({mode_name(mode)}): {name} max |kernel - "
+                f"plain| {d['max_abs_err']:.3e}; alone {d['kernel_ms']:.4f} "
+                f"ms ({d['kernel_ms'] / f32[name]['kernel_ms']:.3f}x "
+                f"float32's), call {d['ms']:.4f} ms "
+                f"({d['ms'] / f32[name]['ms']:.3f}x), plain "
+                f"{d['plain_ms']:.3f} ms, bound {d['bound_ms']:.4f} ms "
+                f"({d['bound_by']}); {sass} SASS instructions a pair")
+    return out
+
+
+def precision_fit(frames, hk, counters):
+    """GOPFitter at the fixture's full width on the 1080p frames, the
+    narrow phase's 12-step schedule with matmul_dtype "bfloat16", then
+    PREC_EXTRA_STEPS steps in each other mode of PREC_MODES (the settings
+    swapped on the same fitter).  Per step: B1 and B2 once and no other
+    composite, a finite loss.  Then the fitted state's PREC_EVAL_FRAMES
+    through B4 in every mode: one launch a frame, a PSNR within
+    PREC_PSNR_DB of float32's.  Returns {mode: (B1, B2, B4 launches)}."""
+    from gsvc_tpu_torch.config import load_config
+    from gsvc_tpu_torch.framecube.frame import FrameCubeDataset
+    from gsvc_tpu_torch.train.fit import GOPFitter
+
+    names = [n for n, _ in counters]
+
+    def counts():
+        return tuple(c.launches for _, c in counters)
+
+    cfg = load_config(str(FIXTURE_DIR / "cfg_args.yaml"), overrides={
+        **NARROW_SET, "pipeline.matmul_dtype": PREC_FIT_MODE[1]})
+    cfg.pipeline.source_path = cfg.pipeline.optical_path = ""
+    cfg.pipeline.model_path = ""
+    fitter = GOPFitter(cfg, FrameCubeDataset(images=frames), seed=0,
+                       device="cuda", log_fn=lambda m: log(f"  fit: {m}"))
+    fitter.timer = StepTimer(hk)
+    steps = []
+    run = fitter._run_single
+
+    def run_single(*a, **k):
+        c0 = counts()
+        m = run(*a, **k)
+        steps.append((mode_name((fitter.settings.compute_dtype,
+                                 fitter.settings.matmul_dtype)),
+                      tuple(b - a_ for a_, b in zip(c0, counts())),
+                      float(m.loss)))
+        return m
+
+    fitter._run_single = run_single
+    launches = {}
+    it = 0
+    for mode in (PREC_FIT_MODE,) + tuple(m for m in PREC_MODES[1:]
+                                         if m != PREC_FIT_MODE):
+        n = NARROW_STEPS if mode == PREC_FIT_MODE else PREC_EXTRA_STEPS
+        fitter.settings = with_mode(fitter.settings, mode)
+        fitter._build_step()
+        for _, c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # a fit runs from the iteration after the controller's
+        fitter.fit(iterations=fitter.controller.current_iteration + n,
+                   log_every=n)
+        torch.cuda.synchronize()
+        it += n
+        total = counts()
+        launches[mode] = [total[names.index("B1")],
+                          total[names.index("B2")], 0]
+        log(f"precision phase: {n} steps in {mode_name(mode)} at "
+            f"{fitter.settings.image_width}x{fitter.settings.image_height} "
+            f"in {time.perf_counter() - t0:.2f} s wall; launches {names} "
+            f"{total}")
+    want = tuple(int(n in ("B1", "B2")) for n in names)
+    bad = [s for s in steps if s[1] != want or not np.isfinite(s[2])]
+    log("precision phase: (mode, loss) per step " + ", ".join(
+        f"({m}, {v:.5f})" for m, _, v in steps))
+    if len(steps) != it or bad:
+        raise AssertionError(f"precision phase: steps {bad or steps}: "
+                             f"expected B1 and B2 once a step, nothing "
+                             f"else, finite losses")
+    split = fitter.timer.split()
+    log("precision phase: step ms (CUDA events) " + ", ".join(
+        f"{r['step']:.2f}" for r in split) + "; B1 " + ", ".join(
+        f"{r['B1']:.3f}" for r in split) + "; B2+scatter " + ", ".join(
+        f"{r['B2+scatter']:.3f}" for r in split))
+
+    psnr = {}
+    for mode in PREC_MODES:
+        fitter.settings = with_mode(fitter.settings, mode)
+        for _, c in counters:
+            c.launches = 0
+        ev = fitter.evaluate(frames=list(PREC_EVAL_FRAMES))
+        torch.cuda.synchronize()
+        total = counts()
+        want = tuple(len(PREC_EVAL_FRAMES) if n == "B4" else 0
+                     for n in names)
+        if total != want or not np.isfinite(ev["psnr"]):
+            raise AssertionError(f"precision phase: evaluation in "
+                                 f"{mode_name(mode)}: launches {total}, "
+                                 f"PSNR {ev['psnr']}")
+        psnr[mode] = ev["psnr"]
+        if mode in launches:
+            launches[mode][2] = total[names.index("B4")]
+    log(f"precision phase: mean PSNR of frames {list(PREC_EVAL_FRAMES)} "
+        "of the fitted state through B4: " + ", ".join(
+            f"{mode_name(m)} {v:.6f} dB" for m, v in psnr.items()))
+    worst = max(abs(v - psnr[PREC_MODES[0]]) for v in psnr.values())
+    if worst > PREC_PSNR_DB:
+        raise AssertionError(f"precision phase: a mode's PSNR lies "
+                             f"{worst} dB from float32's")
+    del fitter
+    return launches
+
+
+def precision_phase(mirror, bidir, hk, fitter, dec, frames, counters):
+    """The precision modes at full width: the kernels on the training
+    phase's fitted pair 299-300 and the slice phase's decoded frame 342
+    (``precision_kernels``), then the 12-step fit (``precision_fit``).
+    Returns {(kernel, mode): numbers with "launches"} for the modes past
+    float32."""
+    from gsvc_tpu_torch.render.batched import frame_splats
+
+    t0 = time.perf_counter()
+    pair = training_pair_inputs(fitter, 299)
+    ids = np.linspace(0, len(dec.frame_zs) - 1, N_FRAMES).round().astype(int)
+    fs = frame_splats(dec.state, dec.cfg, float(dec.frame_zs[
+        ids[N_FRAMES // 2]]), dec.x_min, dec.y_min, dec.scale, dec.settings,
+        dec.window_cap)
+    nums = precision_kernels(mirror, bidir, fitter.settings, pair,
+                             dec.settings, (fs.attrs, fs.tile_lists,
+                                            fs.counts))
+    del pair, fs
+    torch.cuda.empty_cache()
+    launches = precision_fit(frames, hk, counters)
+    for mode, (l1, l2, l4) in launches.items():
+        for name, n in (("B1", l1), ("B2", l2), ("B4", l4)):
+            nums[(name, mode)]["launches"] = n
+    log(f"precision phase: {time.perf_counter() - t0:.1f} s")
+    return {k: v for k, v in nums.items() if k[1] != PREC_MODES[0]}
 
 
 def hash_flops(spec, n: int, backward: bool) -> int:
@@ -3126,6 +3422,41 @@ def fit_study(which):
         torch.cuda.empty_cache()
 
 
+def kernel_times() -> None:
+    """``--kernel-times``: float32 B1, B2 and B4 on the kernel phase's
+    synthetic 1080p tiles, each alone (torch.profiler) and by the call,
+    on one line; run from the root of each of two trees in turns (parent,
+    change, change, parent) to compare their kernels on one card."""
+    from gsvc_tpu_torch import build
+    from gsvc_tpu_torch.render import bidir, mirror
+    from gsvc_tpu_torch.render.splat import RasterSettings
+
+    build.build()
+    dec = RasterSettings(image_height=1080, image_width=1920, threshold=0.1,
+                         tile_h=16, tile_w=128, gaussian_cap=1024,
+                         chunk=128, tiles_per_gaussian=32)
+    tr = RasterSettings(image_height=1080, image_width=1920, threshold=0.05,
+                        tile_h=8, tile_w=128, gaussian_cap=1024, chunk=128,
+                        tiles_per_gaussian=32)
+    a, l, c = synthetic_tiles(dec, seed=0, device="cuda")
+    fa, fl, fc = synthetic_frames(tr, seed=1, n_frames=2, device="cuda")
+    out, chk = mirror.mirror_fwd_cuda(tr, fa, fl, fc)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    g = torch.randn(out.shape, generator=gen, device="cuda")
+    calls = {
+        "B1": (lambda: mirror.mirror_fwd_cuda(tr, fa, fl, fc),
+               "mirror_fwd_kernel", 10),
+        "B2": (lambda: mirror.mirror_bwd_cuda(tr, fa, fl, fc, out, chk, g),
+               "mirror_bwd_kernel", 5),
+        "B4": (lambda: bidir.bidir_out4_cuda(dec, a, l, c), "bidir_kernel",
+               20)}
+    log(f"kernel times ({pathlib.Path(__file__).resolve().parent}): "
+        + "; ".join(f"{k} alone {kernel_ms(fn, name, n)[0]:.4f} ms, call "
+                    f"{cuda_ms(fn, n):.4f} ms"
+                    for k, (fn, name, n) in calls.items()))
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3178,6 +3509,13 @@ def main() -> int:
     res, dec = slice_phase(bidir)
     b1, b2, b3_launches, fitter, frames = training_phase(dec, bidir, mirror,
                                                          hk)
+    counters = (("B6f", stream.stream_forward),
+                ("B6b", stream.stream_backward),
+                ("B1", mirror.mirror_forward), ("B2", mirror.mirror_backward),
+                ("B5f", tile.tile_forward), ("B5b", tile.tile_backward),
+                ("B4", bidir.bidir_composite_attrs))
+    prec = precision_phase(mirror, bidir, hk, fitter, dec, frames, counters)
+    torch.cuda.empty_cache()
     (h3f, h3b), (c3f, c3b) = hashgrid_phase(hk, fitter)
     codec = codec_phase(fitter, bidir, mirror, tile, hk)
     b6f, b6b = stream_kernel_phase(stream, mirror, fitter)
@@ -3192,11 +3530,6 @@ def main() -> int:
                 "window_cap": fitter.window_cap}
     del fitter, ds
     torch.cuda.empty_cache()
-    counters = (("B6f", stream.stream_forward),
-                ("B6b", stream.stream_backward),
-                ("B1", mirror.mirror_forward), ("B2", mirror.mirror_backward),
-                ("B5f", tile.tile_forward), ("B5b", tile.tile_backward),
-                ("B4", bidir.bidir_composite_attrs))
     _, cli_b6f = stream_cli_phase(ckpt, frames, codec["psnr"], counters)
     torch.cuda.empty_cache()
     fit_b6, stream_meds = short_fit_phase(
@@ -3343,6 +3676,28 @@ def main() -> int:
         "bound_by": b6b["bound_by"],
         "library_ms": None,   # no PyTorch call computes a stream composite
     }]}
+    # B1, B2 and B4 in each precision mode past float32: the precision
+    # phase's kernels and its fit
+    entry = {"B1": ("mirror_forward", "mirror_fwd.cu", 636),
+             "B2": ("mirror_backward", "mirror_bwd.cu", 699),
+             "B4": ("bidir_composite_attrs", "bidir.cu", 1074)}
+    for (kernel, mode), d in prec.items():
+        name, src, line = entry[kernel]
+        table["kernels"].append({
+            "name": f"{name}[compute_dtype={mode[0]},matmul_dtype={mode[1]}]",
+            "route": "cuda",
+            "source": f"gsvc_tpu_torch/csrc/{src}",
+            "replaces": f"gsvc_tpu/render/pallas_splat.py:{line}",
+            "launches": d["launches"],
+            "max_abs_err": d["max_abs_err"],
+            "ms": d["ms"],
+            "kernel_ms": d["kernel_ms"],   # the kernel alone (torch.profiler)
+            "plain_ms": d["plain_ms"],
+            "bound_ms": d["bound_ms"],
+            "bound_by": d["bound_by"],
+            "sass_per_pair": d["sass"],
+            "library_ms": None,   # no PyTorch call computes this function
+        })
     log(json.dumps(table))
     log(f"wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
@@ -3352,6 +3707,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--kernel-times"]:
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device available")
+        kernel_times()
+        sys.exit(0)
     if sys.argv[1:2] == ["--fit-study"]:
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: no CUDA device available")

@@ -2,10 +2,9 @@
 
 Field names, defaults and the YAML overlay are identical to the JAX
 package, so ``cfgs/*.yaml`` files and the ``model_config`` dict a
-bitstream carries load unchanged.  Execution knobs that only steer the
-TPU kernels (``use_pallas``, ``matmul_dtype``, ``rasterizer``,
-``hash_backend``, ``mesh_shape``) are kept so configs round-trip; the port
-reads only what its decode path uses.
+bitstream carries load unchanged.  The JAX package's execution knobs are
+kept so configs round-trip; among them ``pipeline.matmul_dtype`` is the
+compositing precision mode of kernels B1/B2 and B4 (``render/mirror.py``).
 """
 
 from __future__ import annotations

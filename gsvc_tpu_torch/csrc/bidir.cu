@@ -53,6 +53,12 @@
 //     where several of them can end up sharing one SM.
 //   * Per pixel, the copies, their order, the operations and the tile's stops are
 //     those of one block per tile, so C changes no bit of the output.
+//
+// Precision modes (template parameter MODE; render/mirror.py's table): the alphas as B1
+// takes them (two rows a packed bf16 operation in compute_dtype "bfloat16"); in
+// matmul_dtype "bfloat16" the in-chunk prefix and suffix products take each copy's
+// factor exp(bf16(log1p(-a))), so the front loop keeps the chunk's own Horner sum
+// apart and carries it, as T and S, by the chunk's float32 product of (1 - a).
 #include <cooperative_groups.h>
 
 #include "replay.cuh"
@@ -61,18 +67,23 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+using gsvc::Alpha;
 using gsvc::Column;
+using gsvc::ColumnBf16;
 using gsvc::Stage;
-using gsvc::alpha_col;
-using gsvc::column_at;
+using gsvc::alpha_at;
+using gsvc::column_mode;
 using gsvc::cp_async_commit;
 using gsvc::cp_async_wait_all;
 using gsvc::finish_rows;
+using gsvc::kAlphaBf16;
 using gsvc::kMaxChunk;
 using gsvc::kMaxThreads;
 using gsvc::kTEps;
+using gsvc::kTransBf16;
 using gsvc::stage_ids;
 using gsvc::stage_rows;
+using gsvc::trans_factor;
 
 // The tile's vote on a chunk stop: whether any pixel of any CTA of the cluster is
 // live.  flags[2] is this CTA's double-buffered flag in shared memory; n counts the
@@ -106,7 +117,7 @@ __device__ __forceinline__ void stage_first(Stage* st, int (*ids)[kMaxChunk],
   finish_rows(st[0], ids[0], chunk, m, cx, cy);
 }
 
-template <int PPT>
+template <int PPT, int MODE>
 __global__ void __launch_bounds__(kMaxThreads)
 bidir_kernel(const float* __restrict__ attrs, const int* __restrict__ lists,
              const int* __restrict__ counts, const int* __restrict__ order,
@@ -165,22 +176,63 @@ bidir_kernel(const float* __restrict__ attrs, const int* __restrict__ lists,
     cp_async_commit();
     const Stage& s = st[b];
     const int n = real(p);
-    for (int i = 0; i < n; ++i) {
-      const Column c = column_at(s, i, x);
+    if constexpr ((MODE & kTransBf16) != 0) {
+      // in-chunk products of the factors f (e) and of 1 - a (pm), and the chunk's own
+      // Horner sum (hc), carried into tf and ah at the chunk's end by pm
+      float e[PPT], pm[PPT], hc[PPT][3];
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
-        const float a = alpha_col(c, ys[k]).a;
-        const float one_m = 1.0f - a;
-        if (tf[k] >= kTEps) {
-          const float w = a * tf[k];
-          af[k][0] += w * c.r;
-          af[k][1] += w * c.g;
-          af[k][2] += w * c.b;
+        e[k] = pm[k] = 1.0f;
+        hc[k][0] = hc[k][1] = hc[k][2] = 0.0f;
+      }
+      for (int i = 0; i < n; ++i) {
+        const ColumnBf16 cm = column_mode<MODE>(s, i, x);
+        const Column& c = cm.f;
+        Alpha next;
+#pragma unroll
+        for (int k = 0; k < PPT; ++k) {
+          const float a = alpha_at<MODE>(cm, ys, k, next).a;
+          const float tb = tf[k] * e[k];
+          if (tb >= kTEps) {
+            const float w = a * tb;
+            af[k][0] += w * c.r;
+            af[k][1] += w * c.g;
+            af[k][2] += w * c.b;
+          }
+          const float fk = trans_factor<MODE>(a);
+          hc[k][0] = hc[k][0] * fk + a * c.r;
+          hc[k][1] = hc[k][1] * fk + a * c.g;
+          hc[k][2] = hc[k][2] * fk + a * c.b;
+          e[k] *= fk;
+          pm[k] *= 1.0f - a;
         }
-        ah[k][0] = ah[k][0] * one_m + a * c.r;
-        ah[k][1] = ah[k][1] * one_m + a * c.g;
-        ah[k][2] = ah[k][2] * one_m + a * c.b;
-        tf[k] *= one_m;
+      }
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        tf[k] *= pm[k];
+#pragma unroll
+        for (int q = 0; q < 3; ++q) ah[k][q] = ah[k][q] * pm[k] + hc[k][q];
+      }
+    } else {
+      for (int i = 0; i < n; ++i) {
+        const ColumnBf16 cm = column_mode<MODE>(s, i, x);
+        const Column& c = cm.f;
+        Alpha next;
+#pragma unroll
+        for (int k = 0; k < PPT; ++k) {
+          const float a = alpha_at<MODE>(cm, ys, k, next).a;
+          const float one_m = 1.0f - a;
+          if (tf[k] >= kTEps) {
+            const float w = a * tf[k];
+            af[k][0] += w * c.r;
+            af[k][1] += w * c.g;
+            af[k][2] += w * c.b;
+          }
+          ah[k][0] = ah[k][0] * one_m + a * c.r;
+          ah[k][1] = ah[k][1] * one_m + a * c.g;
+          ah[k][2] = ah[k][2] * one_m + a * c.b;
+          tf[k] *= one_m;
+        }
       }
     }
     cp_async_wait_all();
@@ -210,19 +262,36 @@ bidir_kernel(const float* __restrict__ attrs, const int* __restrict__ lists,
     if (q - 2 >= p_stop) stage_ids(ids[b], list, q - 2, chunk);
     cp_async_commit();
     const Stage& s = st[b];
+    // e: the in-chunk suffix product of the factors; pm: the chunk's float32 product of
+    // (1 - a), carried into tb at the chunk's end (matmul_dtype "bfloat16" only)
+    float e[PPT], pm[PPT];
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) e[k] = pm[k] = 1.0f;
     for (int i = real(q) - 1; i >= 0; --i) {
-      const Column c = column_at(s, i, x);
+      const ColumnBf16 cm = column_mode<MODE>(s, i, x);
+      const Column& c = cm.f;
+      Alpha next;
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
-        const float a = alpha_col(c, ys[k]).a;
-        if (tb[k] >= kTEps) {
-          const float w = a * tb[k];
+        const float a = alpha_at<MODE>(cm, ys, k, next).a;
+        const float sb = (MODE & kTransBf16) ? tb[k] * e[k] : tb[k];
+        if (sb >= kTEps) {
+          const float w = a * sb;
           ab[k][0] += w * c.r;
           ab[k][1] += w * c.g;
           ab[k][2] += w * c.b;
         }
-        tb[k] *= 1.0f - a;
+        if (MODE & kTransBf16) {
+          e[k] *= trans_factor<MODE>(a);
+          pm[k] *= 1.0f - a;
+        } else {
+          tb[k] *= 1.0f - a;
+        }
       }
+    }
+    if (MODE & kTransBf16) {
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) tb[k] *= pm[k];
     }
     cp_async_wait_all();
     if (q - 1 >= p_stop) finish_rows(st[b ^ 1], ids[b ^ 1], chunk, m, cx, cy);
@@ -242,6 +311,24 @@ bidir_kernel(const float* __restrict__ attrs, const int* __restrict__ lists,
   cl.sync();
 }
 
+template <int MODE>
+cudaError_t launch(cudaLaunchConfig_t* cfg, int ppt, const float* attrs, const int* lists,
+                   const int* counts, const int* order, float* out, int m, int n_tiles,
+                   int n_tiles_x, int tile_w, int cap, int chunk, float bg) {
+#define GSVC_BIDIR_LAUNCH(P)                                                          \
+  return cudaLaunchKernelEx(cfg, bidir_kernel<P, MODE>, attrs, lists, counts, order, out, \
+                            m, n_tiles, n_tiles_x, tile_w, cap, chunk, bg)
+  switch (ppt) {
+    case 1: GSVC_BIDIR_LAUNCH(1);
+    case 2: GSVC_BIDIR_LAUNCH(2);
+    case 4: GSVC_BIDIR_LAUNCH(4);
+    case 8: GSVC_BIDIR_LAUNCH(8);
+    case 16: GSVC_BIDIR_LAUNCH(16);
+    default: return cudaErrorInvalidValue;
+  }
+#undef GSVC_BIDIR_LAUNCH
+}
+
 }  // namespace
 
 // Launches one cluster of `cluster` CTAs per data tile on `stream` (n_frames * n_tiles
@@ -252,11 +339,14 @@ bidir_kernel(const float* __restrict__ attrs, const int* __restrict__ lists,
 // [n_frames * n_tiles] i32 the tiles in launch order (heaviest first), out
 // [n_frames * n_tiles, 4, cluster * threads * ppt] f32.  Returns the launch's error (a
 // cluster the card refuses) or cudaGetLastError() after it (0 on success); it never
-// launches another shape in its place.
+// launches another shape in its place.  `mode` is render/bidir.py check_precision's
+// kAlphaBf16 and kTransBf16 bits (0: float32; bf16x2 composites as float32); any other
+// value is refused, never replaced by float32.
 extern "C" int bidir_composite(const float* attrs, const int* lists, const int* counts,
                                const int* order, float* out, int n_frames, int m,
                                int n_tiles, int n_tiles_x, int tile_w, int cap, int chunk,
-                               int cluster, int threads, int ppt, float bg, void* stream) {
+                               int cluster, int threads, int ppt, int mode, float bg,
+                               void* stream) {
   if (chunk <= 0 || chunk > kMaxChunk || cap % chunk != 0 || threads <= 0 ||
       threads > kMaxThreads || tile_w <= 0 || threads % tile_w != 0 || cluster < 1 ||
       order == nullptr)
@@ -276,18 +366,17 @@ extern "C" int bidir_composite(const float* attrs, const int* lists, const int* 
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   cudaError_t err;
-#define GSVC_BIDIR_LAUNCH(P)                                                        \
-  err = cudaLaunchKernelEx(&cfg, bidir_kernel<P>, attrs, lists, counts, order, out, \
-                           m, n_tiles, n_tiles_x, tile_w, cap, chunk, bg)
-  switch (ppt) {
-    case 1: GSVC_BIDIR_LAUNCH(1); break;
-    case 2: GSVC_BIDIR_LAUNCH(2); break;
-    case 4: GSVC_BIDIR_LAUNCH(4); break;
-    case 8: GSVC_BIDIR_LAUNCH(8); break;
-    case 16: GSVC_BIDIR_LAUNCH(16); break;
+#define GSVC_BIDIR_MODE(M)                                                             \
+  err = launch<M>(&cfg, ppt, attrs, lists, counts, order, out, m, n_tiles, n_tiles_x, \
+                  tile_w, cap, chunk, bg)
+  switch (mode) {
+    case 0: GSVC_BIDIR_MODE(0); break;
+    case kAlphaBf16: GSVC_BIDIR_MODE(kAlphaBf16); break;
+    case kTransBf16: GSVC_BIDIR_MODE(kTransBf16); break;
+    case kAlphaBf16 | kTransBf16: GSVC_BIDIR_MODE(kAlphaBf16 | kTransBf16); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef GSVC_BIDIR_LAUNCH
+#undef GSVC_BIDIR_MODE
   // clears the error a refused launch leaves, so no later launch reports it
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(err != cudaSuccess ? err : last);

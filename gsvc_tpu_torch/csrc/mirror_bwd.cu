@@ -59,25 +59,36 @@
 //     No float atomics: two launches give the same bits.
 //   * The chunk is staged by cp.async (replay.cuh stage_ids / stage_rows) and read
 //     with three vector loads a copy.
+//
+// Precision modes (template parameter MODE; render/mirror.py's table): B1's alphas and
+// in-chunk factors in the same mode, and under every mode but float32 the products'
+// operands rounded to bf16: the cotangent g once as it is loaded (so the suffix total
+// comes from it too), the colours in dL/da's c . g, and dq, d0, d1 and w in the nine
+// pixel sums.  The running sum of w (c . g) keeps float32 colours and w, so each suffix
+// stays the difference of two sums of the same terms.
 #include "replay.cuh"
 
 namespace {
 
 using gsvc::Pixels;
 using gsvc::Stage;
+using gsvc::bf16_round;
 using gsvc::cp_async_commit;
 using gsvc::cp_async_wait_all;
 using gsvc::finish_rows;
+using gsvc::kAlphaBf16;
+using gsvc::kGradBf16;
 using gsvc::kMaxChunk;
 using gsvc::kMaxThreads;
 using gsvc::kMaxWarps;
+using gsvc::kTransBf16;
 using gsvc::kSums;
 using gsvc::kTEps;
 using gsvc::replay_chunk;
 using gsvc::stage_ids;
 using gsvc::stage_rows;
 
-template <int PPT>
+template <int PPT, int MODE>
 __global__ void __launch_bounds__(kMaxThreads, 2)
 mirror_bwd_kernel(const float* __restrict__ attrs, const int* __restrict__ lists,
                   const int* __restrict__ counts, const float* __restrict__ out4,
@@ -120,9 +131,11 @@ mirror_bwd_kernel(const float* __restrict__ attrs, const int* __restrict__ lists
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
     const int lin = threadIdx.x + k * blockDim.x;
-    px.g[k][0] = go[lin];
-    px.g[k][1] = go[p_pix + lin];
-    px.g[k][2] = go[2 * p_pix + lin];
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const float gq = go[q * p_pix + lin];
+      px.g[k][q] = (MODE & kGradBf16) ? bf16_round(gq) : gq;
+    }
     px.s[k] = tc[n_chunks * p_pix + lin] * go[3 * p_pix + lin] + px.g[k][0] * o4[lin] +
               px.g[k][1] * o4[p_pix + lin] + px.g[k][2] * o4[2 * p_pix + lin];
     px.pre[k] = 0.0f;
@@ -148,7 +161,9 @@ mirror_bwd_kernel(const float* __restrict__ attrs, const int* __restrict__ lists
     finish_rows(st, ids, chunk, m, cx, cy);
     __syncthreads();
     const int n_walked =
-        __any_sync(0xffffffffu, live) ? replay_chunk(st, chunk, v, px, my_red, chunk) : 0;
+        __any_sync(0xffffffffu, live)
+            ? replay_chunk<PPT, MODE>(st, chunk, v, px, my_red, chunk)
+            : 0;
     if ((threadIdx.x & 31) == 0) walked[warp] = n_walked;
     __syncthreads();
 
@@ -189,6 +204,27 @@ mirror_bwd_kernel(const float* __restrict__ attrs, const int* __restrict__ lists
   }
 }
 
+template <int MODE>
+cudaError_t launch(int ppt, int blocks, int threads, size_t smem, cudaStream_t st,
+                   const float* attrs, const int* lists, const int* counts,
+                   const float* out4, const float* tchk, const float* gout, float* grads,
+                   int m, int n_tiles, int n_tiles_x, int tile_w, int cap, int chunk) {
+#define GSVC_MIRROR_BWD_LAUNCH(P)                                                   \
+  mirror_bwd_kernel<P, MODE><<<blocks, threads, smem, st>>>(                        \
+      attrs, lists, counts, out4, tchk, gout, grads, m, n_tiles, n_tiles_x, tile_w, \
+      cap, chunk)
+  switch (ppt) {
+    case 1: GSVC_MIRROR_BWD_LAUNCH(1); break;
+    case 2: GSVC_MIRROR_BWD_LAUNCH(2); break;
+    case 4: GSVC_MIRROR_BWD_LAUNCH(4); break;
+    case 8: GSVC_MIRROR_BWD_LAUNCH(8); break;
+    case 16: GSVC_MIRROR_BWD_LAUNCH(16); break;
+    default: return cudaErrorInvalidValue;
+  }
+#undef GSVC_MIRROR_BWD_LAUNCH
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches one block per (data tile, view) step on `stream`: 2 * n_frames * n_tiles
@@ -198,13 +234,15 @@ mirror_bwd_kernel(const float* __restrict__ attrs, const int* __restrict__ lists
 // [n_frames * n_tiles] i32, out4 [2 * n_frames * n_tiles, 4, P] (B1's output),
 // tchk [2 * n_frames * n_tiles, cap / chunk + 1, P] and gout [2 * n_frames * n_tiles,
 // 4, P] f32 in output (view) row order, grads [2 * n_frames * n_tiles, 9, cap] f32 in
-// step order; P = threads * ppt.  `bg` is unused: out4 holds it.  Returns
-// cudaGetLastError() after the launch (0 on success).
+// step order; P = threads * ppt.  `mode` is render/bidir.py check_precision's bits: 0
+// (float32), kGradBf16 alone (bf16x2) or with kAlphaBf16 and/or kTransBf16; any other
+// value is refused.  `bg` is unused: out4 holds it.  Returns cudaGetLastError() after
+// the launch (0 on success).
 extern "C" int mirror_backward(const float* attrs, const int* lists, const int* counts,
                                const float* out4, const float* tchk, const float* gout,
                                float* grads, int n_frames, int m, int n_tiles,
                                int n_tiles_x, int tile_w, int cap, int chunk, int threads,
-                               int ppt, float bg, void* stream) {
+                               int ppt, int mode, float bg, void* stream) {
   if (chunk <= 0 || chunk > kMaxChunk || cap % chunk != 0 || threads < 32 ||
       threads > kMaxThreads || threads % 32 != 0 || tile_w <= 0 || threads % tile_w != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -212,18 +250,20 @@ extern "C" int mirror_backward(const float* attrs, const int* lists, const int* 
   if (blocks == 0) return 0;
   const size_t smem = static_cast<size_t>(threads / 32) * kSums * chunk * sizeof(float);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define GSVC_MIRROR_BWD_LAUNCH(P)                                                   \
-  mirror_bwd_kernel<P><<<blocks, threads, smem, st>>>(attrs, lists, counts, out4,  \
-                                                      tchk, gout, grads, m, n_tiles, \
-                                                      n_tiles_x, tile_w, cap, chunk)
-  switch (ppt) {
-    case 1: GSVC_MIRROR_BWD_LAUNCH(1); break;
-    case 2: GSVC_MIRROR_BWD_LAUNCH(2); break;
-    case 4: GSVC_MIRROR_BWD_LAUNCH(4); break;
-    case 8: GSVC_MIRROR_BWD_LAUNCH(8); break;
-    case 16: GSVC_MIRROR_BWD_LAUNCH(16); break;
+  cudaError_t err;
+#define GSVC_MIRROR_BWD_MODE(M)                                                          \
+  err = launch<M>(ppt, blocks, threads, smem, st, attrs, lists, counts, out4, tchk, gout, \
+                  grads, m, n_tiles, n_tiles_x, tile_w, cap, chunk)
+  switch (mode) {
+    case 0: GSVC_MIRROR_BWD_MODE(0); break;
+    case kGradBf16: GSVC_MIRROR_BWD_MODE(kGradBf16); break;
+    case kGradBf16 | kAlphaBf16: GSVC_MIRROR_BWD_MODE(kGradBf16 | kAlphaBf16); break;
+    case kGradBf16 | kTransBf16: GSVC_MIRROR_BWD_MODE(kGradBf16 | kTransBf16); break;
+    case kGradBf16 | kAlphaBf16 | kTransBf16:
+      GSVC_MIRROR_BWD_MODE(kGradBf16 | kAlphaBf16 | kTransBf16);
+      break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef GSVC_MIRROR_BWD_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+#undef GSVC_MIRROR_BWD_MODE
+  return static_cast<int>(err);
 }

@@ -35,24 +35,37 @@
 // product inside the chunk (t_before = T_carry * E, E *= 1 - alpha).  Loop stops are per
 // tile and chunk-granular, as the TPU kernel's while-loop.  The two views of a data tile
 // are independent blocks: the forward writes no shared row.
+//
+// Precision modes (template parameter MODE; render/mirror.py's table): in compute_dtype
+// "bfloat16" a thread evaluates the alphas of two rows of its column at once in
+// __nv_bfloat162 lanes (replay.cuh alpha_col2: packed bf16 arithmetic, HFMA2.BF16 and
+// friends, two pixels an instruction, the column's x terms formed once), bit for bit the
+// plain version's bf16 alpha; in matmul_dtype "bfloat16" each copy's in-chunk factor is
+// exp(bf16(log1p(-a))) beside the chunk's float32 product of (1 - a), which carries T to
+// the next chunk and into t_chk.  MODE 0 is the float32 kernel.
 #include "replay.cuh"
 
 namespace {
 
+using gsvc::Alpha;
 using gsvc::Column;
+using gsvc::ColumnBf16;
 using gsvc::Stage;
-using gsvc::alpha_col;
-using gsvc::column_at;
+using gsvc::alpha_at;
+using gsvc::column_mode;
 using gsvc::cp_async_commit;
 using gsvc::cp_async_wait_all;
 using gsvc::finish_rows;
+using gsvc::kAlphaBf16;
+using gsvc::kTransBf16;
 using gsvc::kMaxChunk;
 using gsvc::kMaxThreads;
 using gsvc::kTEps;
 using gsvc::stage_ids;
 using gsvc::stage_rows;
+using gsvc::trans_factor;
 
-template <int PPT>
+template <int PPT, int MODE>
 __global__ void __launch_bounds__(kMaxThreads)
 mirror_fwd_kernel(const float* __restrict__ attrs, const int* __restrict__ lists,
                   const int* __restrict__ counts, float* __restrict__ out,
@@ -117,14 +130,18 @@ mirror_fwd_kernel(const float* __restrict__ attrs, const int* __restrict__ lists
     cp_async_commit();
 
     const Stage& s = st[b];
-    float e[PPT];
+    // e: the in-chunk product of the copies' factors; pm: the chunk's float32
+    // product of (1 - a), the same as e but in matmul_dtype "bfloat16"
+    float e[PPT], pm[PPT];
 #pragma unroll
-    for (int k = 0; k < PPT; ++k) e[k] = 1.0f;
+    for (int k = 0; k < PPT; ++k) e[k] = pm[k] = 1.0f;
     for (int j = 0; j < chunk; ++j) {
-      const Column c = column_at(s, v ? chunk - 1 - j : j, x);
+      const ColumnBf16 cm = column_mode<MODE>(s, v ? chunk - 1 - j : j, x);
+      const Column& c = cm.f;
+      Alpha next;
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
-        const float a = alpha_col(c, ys[k]).a;
+        const float a = alpha_at<MODE>(cm, ys, k, next).a;
         const float tb = t[k] * e[k];
         if (tb >= kTEps) {
           const float w = a * tb;
@@ -132,11 +149,12 @@ mirror_fwd_kernel(const float* __restrict__ attrs, const int* __restrict__ lists
           acc[k][1] += w * c.g;
           acc[k][2] += w * c.b;
         }
-        e[k] *= 1.0f - a;
+        e[k] *= trans_factor<MODE>(a);
+        if (MODE & kTransBf16) pm[k] *= 1.0f - a;
       }
     }
 #pragma unroll
-    for (int k = 0; k < PPT; ++k) t[k] *= e[k];
+    for (int k = 0; k < PPT; ++k) t[k] *= (MODE & kTransBf16) ? pm[k] : e[k];
     cp_async_wait_all();
     if (p + 1 < n_used) finish_rows(st[b ^ 1], ids[b ^ 1], chunk, m, cx, cy);
   }
@@ -152,6 +170,26 @@ mirror_fwd_kernel(const float* __restrict__ attrs, const int* __restrict__ lists
   }
 }
 
+template <int MODE>
+cudaError_t launch(int ppt, int blocks, int threads, cudaStream_t st, const float* attrs,
+                   const int* lists, const int* counts, float* out, float* tchk, int m,
+                   int n_tiles, int n_tiles_x, int tile_w, int cap, int chunk, float bg) {
+#define GSVC_MIRROR_FWD_LAUNCH(P)                                                        \
+  mirror_fwd_kernel<P, MODE><<<blocks, threads, 0, st>>>(attrs, lists, counts, out, tchk, \
+                                                         m, n_tiles, n_tiles_x, tile_w,  \
+                                                         cap, chunk, bg)
+  switch (ppt) {
+    case 1: GSVC_MIRROR_FWD_LAUNCH(1); break;
+    case 2: GSVC_MIRROR_FWD_LAUNCH(2); break;
+    case 4: GSVC_MIRROR_FWD_LAUNCH(4); break;
+    case 8: GSVC_MIRROR_FWD_LAUNCH(8); break;
+    case 16: GSVC_MIRROR_FWD_LAUNCH(16); break;
+    default: return cudaErrorInvalidValue;
+  }
+#undef GSVC_MIRROR_FWD_LAUNCH
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches one block per (data tile, view) step on `stream`: 2 * n_frames * n_tiles
@@ -159,29 +197,30 @@ mirror_fwd_kernel(const float* __restrict__ attrs, const int* __restrict__ lists
 // are device pointers: attrs [n_frames, m, 9] f32, lists [n_frames * n_tiles, cap] i32
 // (-1 padded), counts [n_frames * n_tiles] i32, out [2 * n_frames * n_tiles, 4,
 // threads * ppt] f32, tchk [2 * n_frames * n_tiles, cap / chunk + 1, threads * ppt] f32.
+// `mode` is render/bidir.py check_precision's kAlphaBf16 and kTransBf16 bits (0:
+// float32; a forward under bf16x2 is the float32 one); any other value is refused.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int mirror_forward(const float* attrs, const int* lists, const int* counts,
                               float* out, float* tchk, int n_frames, int m, int n_tiles,
                               int n_tiles_x, int tile_w, int cap, int chunk, int threads,
-                              int ppt, float bg, void* stream) {
+                              int ppt, int mode, float bg, void* stream) {
   if (chunk <= 0 || chunk > kMaxChunk || cap % chunk != 0 || threads <= 0 ||
       threads > kMaxThreads || tile_w <= 0 || threads % tile_w != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = 2 * n_frames * n_tiles;
   if (blocks == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define GSVC_MIRROR_FWD_LAUNCH(P)                                                  \
-  mirror_fwd_kernel<P><<<blocks, threads, 0, st>>>(attrs, lists, counts, out, tchk, \
-                                                   m, n_tiles, n_tiles_x, tile_w,  \
-                                                   cap, chunk, bg)
-  switch (ppt) {
-    case 1: GSVC_MIRROR_FWD_LAUNCH(1); break;
-    case 2: GSVC_MIRROR_FWD_LAUNCH(2); break;
-    case 4: GSVC_MIRROR_FWD_LAUNCH(4); break;
-    case 8: GSVC_MIRROR_FWD_LAUNCH(8); break;
-    case 16: GSVC_MIRROR_FWD_LAUNCH(16); break;
+  cudaError_t err;
+#define GSVC_MIRROR_FWD_MODE(M)                                                       \
+  err = launch<M>(ppt, blocks, threads, st, attrs, lists, counts, out, tchk, m, n_tiles, \
+                  n_tiles_x, tile_w, cap, chunk, bg)
+  switch (mode) {
+    case 0: GSVC_MIRROR_FWD_MODE(0); break;
+    case kAlphaBf16: GSVC_MIRROR_FWD_MODE(kAlphaBf16); break;
+    case kTransBf16: GSVC_MIRROR_FWD_MODE(kTransBf16); break;
+    case kAlphaBf16 | kTransBf16: GSVC_MIRROR_FWD_MODE(kAlphaBf16 | kTransBf16); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef GSVC_MIRROR_FWD_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+#undef GSVC_MIRROR_FWD_MODE
+  return static_cast<int>(err);
 }

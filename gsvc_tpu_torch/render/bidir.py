@@ -24,6 +24,10 @@ launched heaviest first) on CUDA tensors and runs
 vectorised, chunk by chunk, with the same per-tile loop stops as masks —
 on CPU tensors.  Port of ``bidir_composite_attrs`` /
 ``_fwd_kernel_bidir`` (gsvc_tpu/render/pallas_splat.py:1178, :1074).
+Both take the settings' precision modes (``check_precision``; the table
+in ``render/mirror.py``): the alpha, and each copy's factor of the front
+prefix and back suffix products inside a chunk, with the chunks' totals
+float32.
 """
 
 from __future__ import annotations
@@ -84,14 +88,70 @@ def _check_inputs(settings: RasterSettings, attrs, tile_lists, counts):
         raise ValueError("gaussian_cap must be a multiple of chunk")
 
 
-def check_float32(settings: RasterSettings):
-    """The composites (B1/B2, B5f/B5b, B6f/B6b) run in float32 only."""
-    if settings.compute_dtype != "float32" or \
-            settings.matmul_dtype != "float32":
+# the precision modes (``RasterSettings.compute_dtype`` / ``matmul_dtype``;
+# gsvc_tpu/render/pallas_splat.py ``_chunk_alpha``, ``_matmul_fns``) as
+# the bits of the kernels' ``mode`` argument: the alpha in bf16, the
+# in-chunk transmittance from bf16 logs, the backward's products on
+# bf16-rounded operands (render/mirror.py's docstring has the table)
+COMPUTE_DTYPES = ("float32", "bfloat16")
+MATMUL_DTYPES = ("float32", "bf16x2", "bfloat16")
+ALPHA_BF16, TRANS_BF16, GRAD_BF16 = 1, 2, 4
+# the kernels that take every mode; the others composite in float32 only
+PRECISION_KERNELS = ("B1/B2", "B4")
+
+
+def check_precision(settings: RasterSettings, kernels: str) -> int:
+    """The mode bits of ``settings`` for ``kernels`` ("B1/B2", "B4",
+    "B5f/B5b" or "B6f/B6b").  Every known combination runs through
+    B1/B2 and B4; B5f/B5b and B6f/B6b take float32 only.  An unknown
+    value raises everywhere."""
+    cd, md = settings.compute_dtype, settings.matmul_dtype
+    if cd not in COMPUTE_DTYPES:
+        raise ValueError(f"unknown compute_dtype {cd!r}; expected one of "
+                         f"{COMPUTE_DTYPES}")
+    if md not in MATMUL_DTYPES:
+        raise ValueError(f"unknown matmul_dtype {md!r}; expected one of "
+                         f"{MATMUL_DTYPES}")
+    mode = ((ALPHA_BF16 if cd == "bfloat16" else 0)
+            | (TRANS_BF16 if md == "bfloat16" else 0))
+    if mode or md != "float32":
+        mode |= GRAD_BF16
+    if mode and kernels not in PRECISION_KERNELS:
         raise ValueError(
-            "the port composites in float32 only; compute_dtype "
-            f"{settings.compute_dtype!r} / matmul_dtype "
-            f"{settings.matmul_dtype!r} are TPU MXU precision policies")
+            f"kernels {kernels} composite in float32 only: compute_dtype "
+            f"{cd!r} / matmul_dtype {md!r} run through B1/B2 and B4 "
+            f"(ROADMAP.md §B, precision modes for B5f/B5b, then B6f/B6b)")
+    return mode
+
+
+def alpha_raw(r, d0, d1, mode: int):
+    """The unclamped alpha [..., C, P] of attribute rows ``r`` [..., C, 9]
+    at pixel offsets ``d0``, ``d1`` (pixel minus mean; float32), in
+    float32 (FMA-free, the kernels' order) or, with ``ALPHA_BF16`` in
+    ``mode``, in JAX's bf16 expression: the deltas and a, b, c, opacity
+    rounded to bf16, ``op * exp(-q/2)`` with ``q = a d0 d0 + 2b d0 d1 +
+    c d1 d1`` evaluated left to right in bf16, the result widened."""
+    if mode & ALPHA_BF16:
+        bf = torch.bfloat16
+        d0, d1 = d0.to(bf), d1.to(bf)
+        a, b, c, op = (r[..., k:k + 1].to(bf) for k in (2, 3, 4, 5))
+        q = a * d0 * d0 + 2.0 * b * d0 * d1 + c * d1 * d1
+        return (op * torch.exp(-0.5 * q)).float()
+    ha, hb, hc = (-0.5 * r[..., 2:3], -0.5 * r[..., 3:4],
+                  -0.5 * r[..., 4:5])
+    uu = ha * d0 + hb * d1
+    vv = hb * d0 + hc * d1
+    return r[..., 5:6] * torch.exp(d0 * uu + d1 * vv)
+
+
+def trans_factor(alpha, one_m, mode: int):
+    """Each copy's factor of the in-chunk transmittance: ``1 - alpha``, or
+    with ``TRANS_BF16`` in ``mode`` ``exp(bf16(log1p(-alpha)))`` (JAX's
+    bf16 log-space cumsum with float32 accumulation, taken as a product
+    of the exponentials; the chunk's total stays the float32 product)."""
+    if mode & TRANS_BF16:
+        return torch.exp(torch.log1p(-alpha).to(torch.bfloat16).float())
+    return one_m
 
 
 def _shape_error(kernels, settings, what):
@@ -154,7 +214,7 @@ def _lib():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.restype = ci
         fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
-                       ci, ci, ci, ctypes.c_float, vp]
+                       ci, ci, ci, ci, ctypes.c_float, vp]
     return lib
 
 
@@ -165,7 +225,9 @@ def bidir_out4_cuda(settings: RasterSettings, attrs, tile_lists, counts,
     falling order of their copies (one sort of the counts on the card).
     Returns [F*T, 4, P] tiles: rows 0:3 the fwd/flip-averaged colour
     (+ bg), row 3 the total transmittance.  A launch the card refuses
-    raises."""
+    raises, as does a mode the kernel does not take: it never falls back
+    to float32."""
+    mode = check_precision(settings, "B4")
     _check_inputs(settings, attrs, tile_lists, counts)
     for name, t in (("attrs", attrs), ("tile_lists", tile_lists),
                     ("counts", counts)):
@@ -184,8 +246,8 @@ def bidir_out4_cuda(settings: RasterSettings, attrs, tile_lists, counts,
             attrs.data_ptr(), tile_lists.data_ptr(), counts.data_ptr(),
             order.data_ptr(), out4.data_ptr(), f_n, m, settings.n_tiles,
             settings.n_tiles_x, settings.tile_w, settings.gaussian_cap,
-            settings.chunk, cluster, threads, ppt, float(settings.bg),
-            stream)
+            settings.chunk, cluster, threads, ppt, mode & ~GRAD_BF16,
+            float(settings.bg), stream)
     if err != 0:
         raise RuntimeError(f"bidir_composite launch of {cluster} CTAs a "
                            f"tile failed: CUDA error {err}")
@@ -201,7 +263,9 @@ def bidir_composite_attrs(settings: RasterSettings, attrs, tile_lists,
     Returns ([F, 3, H, W] averaged images, [F, H, W] total
     transmittance).  CUDA tensors launch kernel B4 (and add one to
     ``bidir_composite_attrs.launches``); CPU tensors take the plain
-    version; any other device raises."""
+    version; any other device raises.  Both take the settings' precision
+    modes (``check_precision``)."""
+    check_precision(settings, "B4")
     if attrs.is_cuda:
         out4 = bidir_out4_cuda(settings, attrs, tile_lists, counts)
         bidir_composite_attrs.launches += 1
@@ -230,7 +294,11 @@ def _excl_cumprod(x: torch.Tensor, reverse: bool) -> torch.Tensor:
 def bidir_out4_plain(settings: RasterSettings, attrs, tile_lists, counts):
     """The kernel's function in plain PyTorch.  Returns ([F*T, 4, P]
     tiles, number of (copy, pixel) pairs the loops evaluated — real
-    copies only)."""
+    copies only).  The precision modes as in ``render/mirror.py``'s table:
+    the alpha (``alpha_raw``) and each copy's in-chunk factor
+    (``trans_factor``) of the front product and the back suffix product;
+    the chunk totals stay float32."""
+    mode = check_precision(settings, "B4")
     _check_inputs(settings, attrs, tile_lists, counts)
     f_n, m, _ = attrs.shape
     t_n, cap, chunk = settings.n_tiles, settings.gaussian_cap, settings.chunk
@@ -252,23 +320,17 @@ def bidir_out4_plain(settings: RasterSettings, attrs, tile_lists, counts):
     # padding ids read row 0 with opacity forced to 0 (alpha 0)
     rows = attrs.reshape(f_n * m, 9)[(g // t_n)[:, None] * m
                                      + lists.clamp_min(0)]   # [FT, cap, 9]
-    op_all = torch.where(lists >= 0, rows[..., 5], torch.zeros_like(
-        rows[..., 5]))
+    rows[..., 5] = torch.where(lists >= 0, rows[..., 5],
+                               torch.zeros_like(rows[..., 5]))
 
     def chunk_alpha(c, sel):
         """alpha [S, C, P] and colours [S, C, 3] of chunk c, tiles sel."""
         r = rows[sel, c * chunk:(c + 1) * chunk]
-        op = op_all[sel, c * chunk:(c + 1) * chunk]
         mu_x = r[..., 0] - cx[sel, None]
         mu_y = r[..., 1] - cy[sel, None]
-        ha, hb, hc = (-0.5 * r[..., 2:3], -0.5 * r[..., 3:4],
-                      -0.5 * r[..., 4:5])
         d0 = xs - mu_x[..., None]
         d1 = ys - mu_y[..., None]
-        uu = ha * d0 + hb * d1
-        vv = hb * d0 + hc * d1
-        alpha = torch.clamp(op[..., None] * torch.exp(d0 * uu + d1 * vv),
-                            max=ALPHA_MAX)
+        alpha = torch.clamp(alpha_raw(r, d0, d1, mode), max=ALPHA_MAX)
         alpha = torch.where(alpha >= ALPHA_MIN, alpha,
                             torch.zeros_like(alpha))
         return alpha, r[..., 6:9]
@@ -293,14 +355,15 @@ def bidir_out4_plain(settings: RasterSettings, attrs, tile_lists, counts):
             break
         alpha, cols = chunk_alpha(c, sel)
         one_m = 1.0 - alpha
+        fac = trans_factor(alpha, one_m, mode)
         colst = cols.transpose(1, 2)                     # [S, 3, C]
-        t_before = t_f[sel, None, :] * _excl_cumprod(one_m, False)
+        t_before = t_f[sel, None, :] * _excl_cumprod(fac, False)
         w_f = torch.where(t_before >= T_EPS, alpha * t_before,
                           torch.zeros_like(alpha))
         chunk_t = torch.prod(one_m, dim=1)               # [S, P]
         acc_f[sel] += torch.bmm(colst, w_f)
         acc_h[sel] = acc_h[sel] * chunk_t[:, None] + torch.bmm(
-            colst, alpha * _excl_cumprod(one_m, True))
+            colst, alpha * _excl_cumprod(fac, True))
         t_f[sel] *= chunk_t
         p_stop[sel] += 1
         pairs += real_copies(c, sel).sum()
@@ -316,7 +379,8 @@ def bidir_out4_plain(settings: RasterSettings, attrs, tile_lists, counts):
             continue
         alpha, cols = chunk_alpha(c, sel)
         one_m = 1.0 - alpha
-        s_before = t_b[sel, None, :] * _excl_cumprod(one_m, True)
+        s_before = t_b[sel, None, :] * _excl_cumprod(
+            trans_factor(alpha, one_m, mode), True)
         w_b = torch.where(s_before >= T_EPS, alpha * s_before,
                           torch.zeros_like(alpha))
         acc_b[sel] += torch.bmm(cols.transpose(1, 2), w_b)

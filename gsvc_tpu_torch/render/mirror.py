@@ -37,8 +37,36 @@ and the scatter moves 4.7 bytes per copy-column, far below the kernel's
 arithmetic.  (``_chunked_row_scatter`` is a TPU memory workaround and is
 not carried over.)
 
-Only float32 compositing is ported: ``compute_dtype`` and ``matmul_dtype``
-other than float32 are TPU MXU precision policies and raise.
+Precision modes (``RasterSettings.compute_dtype`` / ``matmul_dtype``; the
+JAX package's ``_chunk_alpha`` and ``_matmul_fns``), in B1/B2 here and in
+B4 (``render/bidir.py``), kernels and plain versions alike; B5f/B5b and
+B6f/B6b raise under any but float32 (``check_precision``):
+
+| setting | alpha | in-chunk transmittance before a copy | backward products (gc, suffix terms, moments, dcol) |
+|---|---|---|---|
+| ``float32`` / ``float32`` | float32, FMA-free in the kernels' order | ``t0 * prod(1 - a_j)`` over the earlier copies j of the chunk | float32 |
+| ``compute_dtype="bfloat16"`` | bf16: d0, d1 = bf16(float32 tile-local delta); a, b, c, op cast to bf16; ``q = a d0 d0 + 2b d0 d1 + c d1 d1`` and ``op * exp(-q/2)`` in bf16, left to right as in JAX; widened to float32; ALPHA_MIN, ALPHA_MAX and the ``act`` gate in float32 | per ``matmul_dtype`` | bf16-rounded operands, float32 accumulation |
+| ``matmul_dtype="bf16x2"`` | per ``compute_dtype`` | float32 (JAX's hi + lo split is float32 to ~2^-18 a term) | bf16-rounded operands, float32 accumulation |
+| ``matmul_dtype="bfloat16"`` | per ``compute_dtype`` | ``t0 * prod exp(bf16(log1p(-a_j)))`` (JAX: exp of the float32-accumulated sum of the bf16 logs; the same to float32 rounding); the chunk's carried total and ``t_chk`` keep the float32 product of (1 - a) | bf16-rounded operands, float32 accumulation |
+
+"bf16-rounded operands" are the factors that JAX's ``_mm_bf16`` /
+``_mm_rhs_t_bf16`` round, where the port's algebra forms them: the
+cotangent g (once, so the suffix total ``t_final g_T + g . out_rgb`` is
+formed from it too), the colours c before dL/dalpha's ``gc = c . g``, w
+before ``dcol = sum w g``, and dq, d0, d1 before the six moment sums
+(``dq (1, d0, d1, d0^2, d0 d1, d1^2)``: products of bf16 values, exact in
+float32).  The port takes its moments about the gaussian's mean where JAX
+takes them in the tile basis ``[1, x, y, x^2, xy, y^2]``, so their rounding
+error differs from JAX's in pattern but not in order.  The suffix terms
+``w (c . g)`` keep the float32 colours and w: kernel B2 forms each suffix as
+the total above minus a running sum of them, and with rounded terms that
+difference would carry the rounding of every term walked so far, past
+B2's tolerance of the plain version (tests/test_torch_precision.py
+``test_b2_suffix_terms_keep_float32``); with them, the port's gradients
+stay within JAX's bands of JAX's same mode (the same file).
+``compute_dtype="bfloat16"`` with ``bf16x2`` is the same function as with
+``float32``.  The MXU triangular matmul and the hi/lo split are TPU
+workarounds and are not carried over.
 """
 
 from __future__ import annotations
@@ -49,7 +77,8 @@ import torch
 
 from gsvc_tpu_torch.build import load
 from gsvc_tpu_torch.render.bidir import (
-    _check_inputs, check_float32, column_shape,
+    ALPHA_BF16, GRAD_BF16, TRANS_BF16, _check_inputs, alpha_raw,
+    check_precision, column_shape, trans_factor,
 )
 from gsvc_tpu_torch.render.splat import (
     ALPHA_MAX, ALPHA_MIN, T_EPS, RasterSettings,
@@ -61,9 +90,9 @@ PLAIN_BATCH = 1024
 
 
 def check_inputs(settings: RasterSettings, attrs, tile_lists, counts):
-    """Validate the composite's inputs (B4's checks plus float32 and a
-    tile-aligned width); returns F (frames)."""
-    check_float32(settings)
+    """Validate the composite's inputs (B4's checks: the precision modes
+    and a tile-aligned width); returns F (frames)."""
+    check_precision(settings, "B1/B2")
     _check_inputs(settings, attrs, tile_lists, counts)
     return attrs.shape[0]
 
@@ -88,7 +117,7 @@ def _lib(name: str, fn_name: str, n_ptrs: int):
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.restype = ci
-        fn.argtypes = [vp] * n_ptrs + [ci] * 9 + [ctypes.c_float, vp]
+        fn.argtypes = [vp] * n_ptrs + [ci] * 10 + [ctypes.c_float, vp]
     return fn
 
 
@@ -100,15 +129,19 @@ def _require_contiguous(**tensors):
             raise ValueError(f"{name} must be a CUDA tensor")
 
 
-def _launch(fn, settings, f_n, m, ptrs, device):
+def _launch(fn, settings, f_n, m, ptrs, device, mode):
+    """One launch of ``fn`` in precision ``mode`` (``check_precision``'s
+    bits); a mode the kernel does not take fails the launch, which raises:
+    no wrapper falls back to float32."""
     threads, ppt = column_shape(settings, "B1/B2")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*ptrs, f_n, m, settings.n_tiles, settings.n_tiles_x,
                  settings.tile_w, settings.gaussian_cap, settings.chunk,
-                 threads, ppt, float(settings.bg), stream)
+                 threads, ppt, mode, float(settings.bg), stream)
     if err != 0:
-        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
+        raise RuntimeError(f"{fn.__name__} launch in mode {mode} failed: "
+                           f"CUDA error {err}")
 
 
 def mirror_fwd_cuda(settings: RasterSettings, attrs, tile_lists, counts):
@@ -126,7 +159,8 @@ def mirror_fwd_cuda(settings: RasterSettings, attrs, tile_lists, counts):
     _launch(_lib("mirror_fwd", "mirror_forward", 5), settings, f_n,
             attrs.shape[1],
             (attrs.data_ptr(), tile_lists.data_ptr(), counts.data_ptr(),
-             out4.data_ptr(), t_chk.data_ptr()), attrs.device)
+             out4.data_ptr(), t_chk.data_ptr()), attrs.device,
+            check_precision(settings, "B1/B2") & (ALPHA_BF16 | TRANS_BF16))
     return out4, t_chk
 
 
@@ -163,7 +197,8 @@ def mirror_bwd_cuda(settings: RasterSettings, attrs, tile_lists, counts,
             attrs.shape[1],
             (attrs.data_ptr(), tile_lists.data_ptr(), counts.data_ptr(),
              out4.data_ptr(), t_chk.data_ptr(), g_out.data_ptr(),
-             grads.data_ptr()), attrs.device)
+             grads.data_ptr()), attrs.device,
+            check_precision(settings, "B1/B2"))
     return grads
 
 
@@ -305,11 +340,13 @@ class _Tiles:
     mirror composite (B1/B2) and of the single-view composite (B5f/B5b,
     ``render/tile.py``)."""
 
-    def __init__(self, settings, rows, u, v, cnt, out_row):
+    def __init__(self, settings, rows, u, v, cnt, out_row, mode=0):
         """rows [S, cap, 9] (opacity 0 on padding slots), u [S] the tile
         whose pixels a step composites from, v [S] 1 for a flip step of
         the mirror composite, cnt [S] list lengths, out_row [S] the output
-        row of each step."""
+        row of each step, ``mode`` the precision bits
+        (``check_precision``)."""
+        self.mode = mode
         th, tw = settings.tile_h, settings.tile_w
         dev = rows.device
         self.rows, self.v, self.cnt, self.out_row = rows, v, cnt, out_row
@@ -346,11 +383,7 @@ class _Tiles:
         mu_y = r[..., 1] - self.cy[idx, None]
         d0 = self.xs[idx, None, :] - mu_x[..., None]
         d1 = self.ys[None, None, :] - mu_y[..., None]
-        ha, hb, hc = (-0.5 * r[..., 2:3], -0.5 * r[..., 3:4],
-                      -0.5 * r[..., 4:5])
-        uu = ha * d0 + hb * d1
-        vv = hb * d0 + hc * d1
-        raw = r[..., 5:6] * torch.exp(d0 * uu + d1 * vv)
+        raw = alpha_raw(r, d0, d1, self.mode)
         alpha = torch.clamp(raw, max=ALPHA_MAX)
         ge_min = alpha >= ALPHA_MIN
         alpha = torch.where(ge_min, alpha, torch.zeros_like(alpha))
@@ -374,7 +407,8 @@ def _mirror_tiles(settings, attrs, tile_lists, counts, sel):
     rows[..., 5] = torch.where(lists >= 0, rows[..., 5],
                                torch.zeros_like(rows[..., 5]))
     return _Tiles(settings, rows, d % t_n, v_all[sel],
-                  counts.reshape(-1)[d].long(), out_all[sel])
+                  counts.reshape(-1)[d].long(), out_all[sel],
+                  check_precision(settings, "B1/B2"))
 
 
 def _excl_cumprod(x: torch.Tensor):
@@ -383,6 +417,10 @@ def _excl_cumprod(x: torch.Tensor):
     incl = torch.cumprod(x, dim=1)
     return (torch.cat([torch.ones_like(incl[:, :1]), incl[:, :-1]], dim=1),
             incl[:, -1])
+
+
+def _bf16_round(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
 
 
 def composite_rows(settings: RasterSettings, tl: _Tiles):
@@ -408,7 +446,10 @@ def composite_rows(settings: RasterSettings, tl: _Tiles):
             chk[:, p + 1:n_chunks] = t[:, None]
             break
         _, alpha, _, _, _, r = tl.load(p, idx)
-        excl, chunk_t = _excl_cumprod(1.0 - alpha)
+        one_m = 1.0 - alpha
+        excl, chunk_t = _excl_cumprod(one_m)
+        if tl.mode & TRANS_BF16:
+            excl = _excl_cumprod(trans_factor(alpha, one_m, tl.mode))[0]
         t_before = t[idx, None, :] * excl
         w = torch.where(t_before >= T_EPS, alpha * t_before,
                         torch.zeros_like(alpha))
@@ -429,7 +470,9 @@ def backward_rows(settings: RasterSettings, tl: _Tiles, chk, g_out4,
     (copy, pixel) pairs of real copies."""
     n_chunks = tl.n_chunks
     dev = tl.rows.device
-    g3 = g_out4[:, 0:3]                                      # [S, 3, P]
+    # the products' operands, bf16-rounded under any precision mode
+    rb = (_bf16_round if tl.mode & GRAD_BF16 else lambda x: x)
+    g3 = rb(g_out4[:, 0:3])                                  # [S, 3, P]
     a_acc = chk[:, n_chunks] * (settings.bg * g3.sum(dim=1) + g_out4[:, 3])
     pos = torch.arange(n_chunks, device=dev)
     live_pos = (chk[:, :n_chunks].amax(dim=2) >= T_EPS) \
@@ -442,11 +485,16 @@ def backward_rows(settings: RasterSettings, tl: _Tiles, chk, g_out4,
             continue
         slot, alpha, act, d0, d1, r = tl.load(p, idx)
         one_m = 1.0 - alpha
-        t_before = chk[idx, p, None, :] * _excl_cumprod(one_m)[0]
+        t_before = chk[idx, p, None, :] * _excl_cumprod(
+            trans_factor(alpha, one_m, tl.mode))[0]
         live = t_before >= T_EPS
         w = torch.where(live, alpha * t_before, torch.zeros_like(alpha))
+        # the suffix's terms keep the colours float32: the kernel forms the
+        # suffix as the colour total minus a running sum (docstring)
         gc = torch.einsum("sck,skp->scp", r[..., 6:9], g3[idx])
         wgc = w * gc
+        if tl.mode & GRAD_BF16:
+            gc = torch.einsum("sck,skp->scp", rb(r[..., 6:9]), g3[idx])
         # suffix in composite order, exclusive of the copy itself
         suffix = torch.flip(torch.cumsum(torch.flip(wgc, [1]), 1), [1])
         a_i = a_acc[idx, None, :] + torch.cat(
@@ -455,13 +503,14 @@ def backward_rows(settings: RasterSettings, tl: _Tiles, chk, g_out4,
             live & act, gc * t_before - a_i / torch.clamp(one_m, min=1e-6),
             torch.zeros_like(alpha))
         dq = d_alpha * alpha * (-0.5)
+        dq, d0, d1 = rb(dq), rb(d0), rb(d1)
         s0 = dq.sum(dim=2)
         s1 = (dq * d0).sum(dim=2)
         s2 = (dq * d1).sum(dim=2)
         s3 = (dq * d0 * d0).sum(dim=2)
         s4 = (dq * d0 * d1).sum(dim=2)
         s5 = (dq * d1 * d1).sum(dim=2)
-        dcol = torch.einsum("scp,skp->sck", w, g3[idx])
+        dcol = torch.einsum("scp,skp->sck", rb(w), g3[idx])
         con_a, con_b, con_c, op = (r[..., 2], r[..., 3], r[..., 4],
                                    r[..., 5])
         vals = torch.stack([

@@ -47,9 +47,10 @@ class RasterSettings:
     ``tiles_per_gaussian`` bounds the copies one gaussian emits and
     ``clamp_to_coverage`` clamps scales so no footprint exceeds it.
     ``copy_budget_factor`` > 0 bins the compacted copy stream of at most
-    ``m * factor`` copies.  ``compute_dtype`` and ``matmul_dtype`` (TPU
-    MXU precision policies) are kept for config parity; the port
-    composites in float32."""
+    ``m * factor`` copies.  ``compute_dtype`` ("float32", "bfloat16")
+    and ``matmul_dtype`` ("float32", "bf16x2", "bfloat16") are the
+    compositing precision modes of kernels B1/B2 and B4 (the table in
+    ``render/mirror.py``); B5f/B5b and B6f/B6b take float32 only."""
 
     image_height: int
     image_width: int

@@ -37,8 +37,9 @@ The plain versions run ``render/mirror.py``'s ``composite_rows`` /
 blocks from ``blk_tile`` / ``blk_cc`` where the kernels take the
 exclusive cumsum of ``nblk``: both stop on the same blocks.  The kernels
 walk a block only up to its live slots (``block_live``), which are a
-prefix of it; the padding after them has opacity 0.  Only float32
-compositing is ported.
+prefix of it; the padding after them has opacity 0.  Kernels B6f/B6b
+composite in float32 only: the precision modes that B1/B2 and B4 take
+raise here until they are ported (ROADMAP.md §B).
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ import torch
 
 from gsvc_tpu_torch.build import load
 from gsvc_tpu_torch.render import mirror
-from gsvc_tpu_torch.render.bidir import check_float32, column_shape
+from gsvc_tpu_torch.render.bidir import check_precision, column_shape
 from gsvc_tpu_torch.render.splat import RasterSettings
 
 N_ATTR = 9
@@ -108,7 +109,7 @@ def stream_from_tile_lists(settings: RasterSettings, tile_lists, counts,
 def check_stream(settings: RasterSettings, rows, sids, blk_tile, blk_cc,
                  nblk):
     """Validate the stream composite's inputs; returns (F, B_MAX)."""
-    check_float32(settings)
+    check_precision(settings, "B6f/B6b")
     if settings.image_width != settings.n_tiles_x * settings.tile_w:
         raise ValueError(
             f"the stream composite mirrors the tile columns: width "

@@ -26,8 +26,9 @@ so the backward takes ``out4`` too.  The gradients reach the
 per-gaussian rows (and ``means2d``) through the autograd of the plane
 gather.
 
-Only float32 compositing is ported: ``compute_dtype`` and ``matmul_dtype``
-other than float32 are TPU MXU precision policies and raise.
+Kernels B5f/B5b composite in float32 only: ``compute_dtype`` and
+``matmul_dtype`` other than float32 (which B1/B2 and B4 take,
+``render/mirror.py``) raise here until they are ported (ROADMAP.md §B).
 """
 
 from __future__ import annotations
@@ -38,12 +39,12 @@ import torch
 
 from gsvc_tpu_torch.build import load
 from gsvc_tpu_torch.render import mirror
-from gsvc_tpu_torch.render.bidir import check_float32, column_shape
+from gsvc_tpu_torch.render.bidir import check_precision, column_shape
 from gsvc_tpu_torch.render.splat import RasterSettings
 
 def check_planes(settings: RasterSettings, planes, counts) -> int:
     """Validate the composite's inputs; returns the row count V*T."""
-    check_float32(settings)
+    check_precision(settings, "B5f/B5b")
     if len(planes) != 9:
         raise ValueError(f"expected 9 planes, got {len(planes)}")
     n_rows = planes[0].shape[0]

@@ -24,6 +24,18 @@ B4 runs one thread-block cluster per tile, heaviest tiles first: every
 cluster size its C entry takes gives the same bits, and a cluster the
 card refuses raises.
 
+Precision modes (render/mirror.py's table): B1, B2 and B4 are held to
+their plain versions in every mode (ALL_MODES) at the tolerances above.
+In bf16 modes B2 may differ more than in float32 (a summation-order
+difference in its last float32 bits can move a bf16-rounded dq, d or w
+by one bf16 step), still inside 2e-3, as tests/test_torch_precision.py's
+CPU emulation of B2 shows.
+Tiles of one copy each compare bit for bit in every mode: there the
+output is the alpha times the colour, so the kernels' alphas, the bf16
+evaluation of two rows a packed operation included, are the plain
+versions'.  B5f/B5b and B6f/B6b raise under every mode but float32, and
+a value that is no mode raises in every composite.
+
 Single-view kernels B5f/B5b (widths that are not a multiple of tile_w):
 the forward and checkpoints to 2 T_EPS, the gradients to 2e-3 of each
 attribute's largest magnitude, for the reasons given for B1/B2; at an
@@ -80,6 +92,17 @@ TRAIN = RasterSettings(image_height=32, image_width=384, threshold=0.1,
                        tile_h=8, tile_w=128, gaussian_cap=1024, chunk=128,
                        tiles_per_gaussian=32)
 BWD_REL = 2e-3
+# the precision modes (compute_dtype, matmul_dtype) that B1/B2 and B4 take,
+# float32 first (render/mirror.py's table)
+ALL_MODES = [("float32", "float32"), ("bfloat16", "float32"),
+             ("float32", "bf16x2"), ("float32", "bfloat16"),
+             ("bfloat16", "bfloat16"), ("bfloat16", "bf16x2")]
+MODES = ALL_MODES[1:]
+
+
+def _mode(settings, mode):
+    return dataclasses.replace(settings, compute_dtype=mode[0],
+                               matmul_dtype=mode[1])
 
 
 def _tiles(settings, seed, opacity_hi):
@@ -114,12 +137,13 @@ def _tiles(settings, seed, opacity_hi):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ALL_MODES, ids="/".join)
 @pytest.mark.parametrize("shape", ["small", "decode"])
 @pytest.mark.parametrize("opacity_hi", [0.1, 0.99])
-def test_bidir_kernel_matches_plain(shape, opacity_hi):
+def test_bidir_kernel_matches_plain(shape, opacity_hi, mode):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    settings = SMALL if shape == "small" else DECODE
+    settings = _mode(SMALL if shape == "small" else DECODE, mode)
     attrs, lists, counts = _tiles(settings, seed=1, opacity_hi=opacity_hi)
     before = bidir.bidir_composite_attrs.launches
     img_k, tau_k = bidir.bidir_composite_attrs(settings, attrs, lists,
@@ -188,18 +212,20 @@ def test_bidir_kernel_on_an_imbalanced_frame():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ALL_MODES, ids="/".join)
 @pytest.mark.parametrize("settings", [SMALL, DECODE, STRIP],
                          ids=["small", "decode", "strip"])
-def test_bidir_cluster_sizes_give_the_same_bits(settings):
+def test_bidir_cluster_sizes_give_the_same_bits(settings, mode):
     """Every cluster size the C entry takes (1, 2, 4, 8 CTAs a tile)
-    gives the launch plan's output bit for bit: each pixel sees the same
-    copies, operations and tile stops."""
+    gives the launch plan's output bit for bit, in every precision mode:
+    each pixel sees the same copies, operations and tile stops."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     if settings is STRIP:
         attrs, lists, counts = _strip(STRIP, 4)
     else:
         attrs, lists, counts = _tiles(settings, seed=5, opacity_hi=0.99)
+    settings = _mode(settings, mode)
     want = bidir.bidir_out4_cuda(settings, attrs, lists, counts)
     assert bidir.bidir_launch_plan(settings)[0] == bidir.B4_CLUSTER >= 2
     for cluster in (1, 2, 4, 8):
@@ -267,14 +293,16 @@ def _mirror_case(shape, opacity_hi):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ALL_MODES, ids="/".join)
 @pytest.mark.parametrize("shape, opacity_hi", [
     ("small", 0.1), ("small", 0.99), ("train", 0.1), ("train", 0.99),
     ("decode", 0.99), ("saturated", None), ("dead_warp", None),
     ("wide", None)])
-def test_mirror_kernels_match_plain(shape, opacity_hi):
+def test_mirror_kernels_match_plain(shape, opacity_hi, mode):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     settings, attrs, lists, counts = _mirror_case(shape, opacity_hi)
+    settings = _mode(settings, mode)
     before = mirror.mirror_forward.launches
     out_k, chk_k = mirror.mirror_forward(settings, attrs, lists, counts)
     assert mirror.mirror_forward.launches == before + 1
@@ -305,13 +333,15 @@ def test_mirror_kernels_match_plain(shape, opacity_hi):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ALL_MODES, ids="/".join)
 @pytest.mark.parametrize("shape", ["train", "saturated"])
-def test_mirror_backward_is_deterministic(shape):
+def test_mirror_backward_is_deterministic(shape, mode):
     """Two B2 launches on the same inputs give bit-identical per-copy
-    rows (fixed-order reductions, no float atomics)."""
+    rows (fixed-order reductions, no float atomics), in every mode."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     settings, attrs, lists, counts = _mirror_case(shape, 0.99)
+    settings = _mode(settings, mode)
     out, chk = mirror.mirror_forward(settings, attrs, lists, counts)
     g = torch.randn(out.shape, device="cuda",
                     generator=torch.Generator("cuda").manual_seed(6))
@@ -1361,3 +1391,83 @@ def test_slab_composite_over_gloo_ranks_matches_one_rank(tmp_path):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     _run_gloo_ranks(_slab_rank, 4, tmp_path)
+
+
+# ---------------------------------------------------------------------------
+# Precision modes of B1, B2 and B4 (render/mirror.py's table); B5f/B5b and
+# B6f/B6b refuse them
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ALL_MODES, ids="/".join)
+@pytest.mark.parametrize("shape", ["small", "train", "decode"])
+def test_single_copy_tiles_equal_plain_bit_for_bit(mode, shape):
+    """Tiles of one copy each: B1's and B4's outputs are the alpha times
+    the colour and 1 - alpha, with no sum to reorder, so kernel and plain
+    version agree bit for bit — the alpha of every pixel, the bf16
+    evaluation (two rows a packed op) included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    settings = {"small": SMALL, "train": TRAIN, "decode": DECODE}[shape]
+    settings = _mode(settings, mode)
+    attrs, lists, counts = _tiles(settings, seed=7, opacity_hi=0.99)
+    # keep the first copy of every tile
+    counts = torch.clamp(counts, max=1)
+    lists = torch.where(torch.arange(settings.gaussian_cap,
+                                     device="cuda") < 1, lists,
+                        torch.full_like(lists, -1))
+    out_k, _ = mirror.mirror_forward(settings, attrs, lists, counts)
+    out_p, _, pairs = mirror.mirror_fwd_plain(settings, attrs, lists,
+                                              counts)
+    b4_k = bidir.bidir_out4_cuda(settings, attrs, lists, counts)
+    b4_p, _ = bidir.bidir_out4_plain(settings, attrs, lists, counts)
+    torch.cuda.synchronize()
+    assert pairs > 0 and float(out_k[:, 3].min()) < 0.5
+    assert torch.equal(out_k, out_p)
+    assert torch.equal(b4_k, b4_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES, ids="/".join)
+def test_other_composites_refuse_precision_modes(mode):
+    """B5f/B5b and B6f/B6b composite in float32 only: each wrapper raises
+    under every other mode, on the card as on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    settings = _mode(SMALL_NARROW, mode)
+    planes, counts = _planes(SMALL_NARROW, 5, 0.99)
+    for call in (lambda: tile.tile_forward(settings, planes, counts),
+                 lambda: tile.tile_composite(settings, planes, counts)):
+        with pytest.raises(ValueError, match="B5f/B5b composite in float32"):
+            call()
+    attrs, bins = _stream(SMALL, 2, 0.99)
+    ssettings = _mode(SMALL, mode)
+    rows = stream.stream_rows(attrs, bins[0])
+    with pytest.raises(ValueError, match="B6f/B6b composite in float32"):
+        stream.stream_forward(ssettings, rows, *bins)
+    with pytest.raises(ValueError, match="B6f/B6b composite in float32"):
+        stream.stream_composite_attrs(ssettings, attrs, *bins)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", ["compute_dtype", "matmul_dtype"])
+def test_unknown_precision_values_raise_everywhere(field):
+    """A value that is no mode raises in every composite's wrapper, at a
+    tile-aligned width (B1/B2, B4, B6f/B6b) and at another (B5f/B5b)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    bad = {field: "float16"}
+    s = dataclasses.replace(SMALL, **bad)
+    attrs, lists, counts = _tiles(SMALL, seed=1, opacity_hi=0.99)
+    calls = [lambda: mirror.mirror_forward(s, attrs, lists, counts),
+             lambda: mirror.mirror_composite_attrs(s, attrs, lists, counts),
+             lambda: bidir.bidir_composite_attrs(s, attrs, lists, counts),
+             lambda: bidir.bidir_out4_cuda(s, attrs, lists, counts)]
+    planes, pcounts = _planes(SMALL_NARROW, 5, 0.99)
+    narrow = dataclasses.replace(SMALL_NARROW, **bad)
+    calls.append(lambda: tile.tile_forward(narrow, planes, pcounts))
+    sattrs, bins = _stream(SMALL, 2, 0.99)
+    calls.append(lambda: stream.stream_composite_attrs(s, sattrs, *bins))
+    for call in calls:
+        with pytest.raises(ValueError, match=f"unknown {field}"):
+            call()

@@ -188,9 +188,12 @@ def test_mirror_refuses_other_precisions_and_widths():
     lists = torch.full((1, PSET.n_tiles, PSET.gaussian_cap), -1,
                        dtype=torch.int32)
     counts = torch.zeros((1, PSET.n_tiles), dtype=torch.int32)
-    bf16 = dataclasses.replace(PSET, matmul_dtype="bfloat16")
-    with pytest.raises(ValueError, match="float32"):
-        mirror.mirror_composite_attrs(bf16, attrs, lists, counts)
+    # the precision modes run (tests/test_torch_precision.py); a value
+    # that is none of them raises
+    for field in ("compute_dtype", "matmul_dtype"):
+        other = dataclasses.replace(PSET, **{field: "float16"})
+        with pytest.raises(ValueError, match=f"unknown {field}"):
+            mirror.mirror_composite_attrs(other, attrs, lists, counts)
     narrow = dataclasses.replace(PSET, image_width=40)
     with pytest.raises(ValueError, match="tile-aligned"):
         mirror.mirror_composite_attrs(narrow, attrs, lists, counts)
