@@ -75,7 +75,21 @@
    pipeline.matmul_dtype "bfloat16" and two more steps in each other mode
    (B1 and B2 once a step and no other composite, finite losses), and
    evaluates four frames of the fitted state through B4 in every mode
-   (one launch a frame, each PSNR within PREC_PSNR_DB of float32's).
+   (one launch a frame, each PSNR within PREC_PSNR_DB of float32's).  Its
+   part for B5f/B5b and B6f/B6b (``precision_tile_stream_phase``) runs
+   after the narrow-width phase (step 10), whose fitted pair it takes: in
+   each mode past float32 B5f/B5b on the 854x480 pair 299-300 and B6f/B6b
+   on the fitted 1080p pair 299-300's copy stream at copy_budget_factor 8
+   against their plain versions (B6f also against B1 in the mode, bit for
+   bit), each timed alone and by the call beside float32's on the same
+   inputs, with bound and SASS a pair; in every mode B5f over that 1080p
+   pair's forward views equal to B1's forward view bit for bit; then a
+   2-step fit at 854x480 with matmul_dtype "bf16x2" (B5f/B5b once a step)
+   and a 2-step 1080p fit with the stream rasterizer, copy_budget_factor
+   8 and matmul_dtype "bfloat16" (B6f/B6b once a step), each with two
+   more steps in every other mode and four frames evaluated in every mode
+   (B5f, or B6f through the stream decode's render, once a frame; PSNR
+   within PREC_PSNR_DB of float32's).
 6. Hash-grid phase: kernels B3f/B3b (``hashgrid_forward`` /
    ``hashgrid_backward``) against their plain versions on the fitted
    state's STE-binarised table (B3f bit for bit), at (a) the union window
@@ -198,9 +212,9 @@
    call, 20 back to back under CUDA events; ``kernel_ms``, B3f, B3b, B4,
    B5f, B5b, B6f and B6b: the kernel alone; ``launches``: the sum over
    the paths that were counted, each reset before and read after; the
-   multi-rank phase's summed over its ranks; B1, B2 and B4 once more for
-   each precision mode past float32, from the precision phase, with
-   ``sass_per_pair``), then the result line.
+   multi-rank phase's summed over its ranks; every compositing kernel
+   once more for each precision mode past float32, from the precision
+   phase, with ``sass_per_pair``), then the result line.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 Frames are written nowhere; the checkpoint goes to a temporary directory.
@@ -215,9 +229,9 @@ one JSON line per fit.
 
     python3 chip_smoke.py --kernel-times
 
-times float32 B1, B2 and B4 on the synthetic 1080p tiles (alone and by
-the call), one line: run from the roots of two trees in turns to compare
-their kernels on one card.
+times float32 B1, B2, B4, B5f, B5b, B6f and B6b on the synthetic 1080p
+tiles (alone and by the call), one line: run from the roots of two trees
+in turns to compare their kernels on one card.
 """
 
 from __future__ import annotations
@@ -410,7 +424,7 @@ def ptxas_report(text: str, lib: str):
     """One line per kernel of library ``lib``'s ``nvcc -Xptxas -v`` log:
     registers, shared memory, stack and spills (a kernel named
     ``<lib>_kernel``, with its template arguments: pixels a thread and,
-    for B1, B2 and B4, the precision mode's bits)."""
+    for the compositing kernels, the precision mode's bits)."""
     lines, name, spill = [], None, ""
     for line in text.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
@@ -429,51 +443,55 @@ def ptxas_report(text: str, lib: str):
     return lines
 
 
-# kernel instantiations whose inner loops sass_floors counts: the mirror
-# kernels at the training tiles' 8 pixels a thread; B4, B5f, B5b and the
-# stream kernels join them at the instantiations their launch plans take
-# (sass_kernels)
-SASS_KERNELS = (("B1", "mirror_fwd", "mirror_fwd_kernelILi8ELi0EE"),
-                ("B2", "mirror_bwd", "mirror_bwd_kernelILi8ELi0EE"))
 # the card's SM clock (MHz, nvidia-smi clocks.max.sm), read in main
 SM_CLOCK_MHZ = None
 
 
 def sass_kernels(bidir, stream, tile, decode_settings, train_settings):
-    """SASS_KERNELS plus B4 at the decode tiles and B5f, B5b, B6f and B6b
-    at the training tiles, each at the pixels a thread its launch plan
-    gives, and how a pair meets the loops: "each" (a pair runs in one of
-    them: B4's front or back loop, a view's copy of a loop) or "sum"
-    (every replayed pair runs in each: a backward that walks a chunk
-    twice); then B1, B2 and B4 in every mode of PREC_MODES ("B1
-    bfloat16/float32", ...) with their exponentials a pair."""
+    """The kernel instantiations whose inner loops sass_floors counts:
+    B1 and B2 at the training tiles' 8 pixels a thread, B4 at the decode
+    tiles and B5f, B5b, B6f and B6b at the training tiles, each at the
+    pixels a thread its launch plan gives, and how a pair meets the
+    loops: "each" (a pair runs in one of them: B4's front or back loop, a
+    view's copy of a loop) or "sum" (every replayed pair runs in each: a
+    backward that walks a chunk twice); in every mode of PREC_MODES
+    (labelled "B1" in float32, "B1 bfloat16/float32" ... in the others)
+    with their exponentials a pair."""
     ppt4 = bidir.bidir_launch_plan(decode_settings)[2]
     ppt5 = tile.launch_shape(train_settings)[1]
     ppt6 = stream.launch_shape(train_settings)[1]
-    modes = []
+    # (label, library, kernel name with its pixels a thread, forward or
+    # backward mode bits, how a pair meets the loops)
+    kernels = (("B1", "mirror_fwd", "mirror_fwd_kernelILi8E", "fwd", "each"),
+               ("B2", "mirror_bwd", "mirror_bwd_kernelILi8E", "bwd", "each"),
+               ("B4", "bidir", f"bidir_kernelILi{ppt4}E", "fwd", "each"),
+               ("B5f", "tile_fwd", f"tile_fwd_kernelILi{ppt5}E", "fwd",
+                "each"),
+               ("B5b", "tile_bwd", f"tile_bwd_kernelILi{ppt5}E", "bwd",
+                "sum"),
+               ("B6f", "stream_fwd", f"stream_fwd_kernelILi{ppt6}E", "fwd",
+                "each"),
+               ("B6b", "stream_bwd", f"stream_bwd_kernelILi{ppt6}E", "bwd",
+                "each"))
+    out = []
     for mode in PREC_MODES:
         # the mode's template argument (render/bidir.py check_precision),
         # and its exponentials a pair: the alpha's, and in matmul_dtype
         # "bfloat16" the copy's transmittance factor's
-        bits = bidir.check_precision(with_mode(train_settings, mode),
-                                     "B1/B2")
+        bits = bidir.check_precision(with_mode(train_settings, mode))
         fwd = bits & (bidir.ALPHA_BF16 | bidir.TRANS_BF16)
         ex2 = 2 if bits & bidir.TRANS_BF16 else 1
-        name = mode_name(mode)
-        modes += [
-            (f"B1 {name}", "mirror_fwd",
-             f"mirror_fwd_kernelILi8ELi{fwd}EE", "each", ex2),
-            (f"B2 {name}", "mirror_bwd",
-             f"mirror_bwd_kernelILi8ELi{bits}EE", "each", ex2),
-            (f"B4 {name}", "bidir", f"bidir_kernelILi{ppt4}ELi{fwd}EE",
-             "each", ex2)]
-    return tuple((*k, "each") for k in SASS_KERNELS) + (
-        ("B6f", "stream_fwd", f"stream_fwd_kernelILi{ppt6}E", "each"),
-        ("B6b", "stream_bwd", f"stream_bwd_kernelILi{ppt6}E", "each"),
-        ("B4", "bidir", f"bidir_kernelILi{ppt4}ELi0EE", "each"),
-        ("B5f", "tile_fwd", f"tile_fwd_kernelILi{ppt5}E", "each"),
-        ("B5b", "tile_bwd", f"tile_bwd_kernelILi{ppt5}E", "sum")) \
-        + tuple(modes)
+        for label, lib, kernel, way, how in kernels:
+            arg = fwd if way == "fwd" else bits
+            out.append((sass_key(label, mode), lib, f"{kernel}Li{arg}EE",
+                        how, ex2))
+    return tuple(out)
+
+
+def sass_key(kernel: str, mode) -> str:
+    """SASS_PER_PAIR's label of ``kernel`` in precision ``mode`` ("B5f" in
+    float32, "B5f bfloat16/float32" ...)."""
+    return kernel if mode == PREC_MODES[0] else f"{kernel} {mode_name(mode)}"
 
 
 def sass_loops(sass: str, kernel: str):
@@ -1423,7 +1441,7 @@ def precision_kernels(mirror, bidir, settings, pair, dec_settings, frame):
             nbytes(fa, fl, fc, out_k), *mode_flops(mode, pairs,
                                                    FLOPS_PER_PAIR))
         for name, d in (("B1", b1), ("B2", b2), ("B4", b4)):
-            d["sass"] = SASS_PER_PAIR.get(f"{name} {mode_name(mode)}")
+            d["sass"] = SASS_PER_PAIR.get(sass_key(name, mode))
             out[(name, mode)] = d
         f32 = {k: out[(k, PREC_MODES[0])] for k in ("B1", "B2", "B4")}
         for name, d in (("B1", b1), ("B2", b2), ("B4", b4)):
@@ -1439,14 +1457,21 @@ def precision_kernels(mirror, bidir, settings, pair, dec_settings, frame):
     return out
 
 
-def precision_fit(frames, hk, counters):
-    """GOPFitter at the fixture's full width on the 1080p frames, the
-    narrow phase's 12-step schedule with matmul_dtype "bfloat16", then
-    PREC_EXTRA_STEPS steps in each other mode of PREC_MODES (the settings
-    swapped on the same fitter).  Per step: B1 and B2 once and no other
-    composite, a finite loss.  Then the fitted state's PREC_EVAL_FRAMES
-    through B4 in every mode: one launch a frame, a PSNR within
-    PREC_PSNR_DB of float32's.  Returns {mode: (B1, B2, B4 launches)}."""
+def precision_fit(frames, hk, counters, label="precision phase",
+                  fit_mode=PREC_FIT_MODE, steps=None, overrides=None,
+                  kernels=("B1", "B2"), evaluator="B4", evaluate=None):
+    """GOPFitter with the fixture's model on ``frames`` (their own size:
+    1080p, or NARROW), the narrow phase's 12-step schedule with
+    ``overrides`` and pipeline.matmul_dtype ``fit_mode[1]``: ``steps``
+    steps (all 12 by default) in ``fit_mode``, then PREC_EXTRA_STEPS
+    steps in each other mode of PREC_MODES past float32 (the settings
+    swapped on the same fitter).
+    Per step: ``kernels`` once each and no other composite, a finite
+    loss.  Then the fitted state's PREC_EVAL_FRAMES in every mode through
+    ``evaluate(fitter, frames)`` (the fitter's own evaluation by
+    default): ``evaluator`` once a frame and nothing else, a PSNR within
+    PREC_PSNR_DB of float32's.  Returns {mode: {kernel: launches}} for
+    ``kernels`` and ``evaluator``."""
     from gsvc_tpu_torch.config import load_config
     from gsvc_tpu_torch.framecube.frame import FrameCubeDataset
     from gsvc_tpu_torch.train.fit import GOPFitter
@@ -1457,30 +1482,33 @@ def precision_fit(frames, hk, counters):
         return tuple(c.launches for _, c in counters)
 
     cfg = load_config(str(FIXTURE_DIR / "cfg_args.yaml"), overrides={
-        **NARROW_SET, "pipeline.matmul_dtype": PREC_FIT_MODE[1]})
+        **NARROW_SET, **(overrides or {}),
+        "pipeline.matmul_dtype": fit_mode[1]})
     cfg.pipeline.source_path = cfg.pipeline.optical_path = ""
     cfg.pipeline.model_path = ""
     fitter = GOPFitter(cfg, FrameCubeDataset(images=frames), seed=0,
                        device="cuda", log_fn=lambda m: log(f"  fit: {m}"))
     fitter.timer = StepTimer(hk)
-    steps = []
+    res = f"{fitter.settings.image_width}x{fitter.settings.image_height}"
+    steps_seen = []
     run = fitter._run_single
 
     def run_single(*a, **k):
         c0 = counts()
         m = run(*a, **k)
-        steps.append((mode_name((fitter.settings.compute_dtype,
-                                 fitter.settings.matmul_dtype)),
-                      tuple(b - a_ for a_, b in zip(c0, counts())),
-                      float(m.loss)))
+        steps_seen.append((mode_name((fitter.settings.compute_dtype,
+                                      fitter.settings.matmul_dtype)),
+                           tuple(b - a_ for a_, b in zip(c0, counts())),
+                           float(m.loss)))
         return m
 
     fitter._run_single = run_single
     launches = {}
     it = 0
-    for mode in (PREC_FIT_MODE,) + tuple(m for m in PREC_MODES[1:]
-                                         if m != PREC_FIT_MODE):
-        n = NARROW_STEPS if mode == PREC_FIT_MODE else PREC_EXTRA_STEPS
+    for mode in (fit_mode,) + tuple(m for m in PREC_MODES[1:]
+                                    if m != fit_mode):
+        n = (steps or NARROW_STEPS) if mode == fit_mode \
+            else PREC_EXTRA_STEPS
         fitter.settings = with_mode(fitter.settings, mode)
         fitter._build_step()
         for _, c in counters:
@@ -1493,50 +1521,52 @@ def precision_fit(frames, hk, counters):
         torch.cuda.synchronize()
         it += n
         total = counts()
-        launches[mode] = [total[names.index("B1")],
-                          total[names.index("B2")], 0]
-        log(f"precision phase: {n} steps in {mode_name(mode)} at "
-            f"{fitter.settings.image_width}x{fitter.settings.image_height} "
-            f"in {time.perf_counter() - t0:.2f} s wall; launches {names} "
+        launches[mode] = {k: total[names.index(k)] for k in kernels}
+        log(f"{label}: {n} steps in {mode_name(mode)} at {res} in "
+            f"{time.perf_counter() - t0:.2f} s wall; launches {names} "
             f"{total}")
-    want = tuple(int(n in ("B1", "B2")) for n in names)
-    bad = [s for s in steps if s[1] != want or not np.isfinite(s[2])]
-    log("precision phase: (mode, loss) per step " + ", ".join(
-        f"({m}, {v:.5f})" for m, _, v in steps))
-    if len(steps) != it or bad:
-        raise AssertionError(f"precision phase: steps {bad or steps}: "
-                             f"expected B1 and B2 once a step, nothing "
+    want = tuple(int(n in kernels) for n in names)
+    bad = [s for s in steps_seen if s[1] != want or not np.isfinite(s[2])]
+    log(f"{label}: (mode, loss) per step " + ", ".join(
+        f"({m}, {v:.5f})" for m, _, v in steps_seen))
+    if len(steps_seen) != it or bad:
+        raise AssertionError(f"{label}: steps {bad or steps_seen}: "
+                             f"expected {kernels} once a step, nothing "
                              f"else, finite losses")
     split = fitter.timer.split()
-    log("precision phase: step ms (CUDA events) " + ", ".join(
-        f"{r['step']:.2f}" for r in split) + "; B1 " + ", ".join(
-        f"{r['B1']:.3f}" for r in split) + "; B2+scatter " + ", ".join(
-        f"{r['B2+scatter']:.3f}" for r in split))
+    marks = [k for k in split[0] if k in ("B1", "B2+scatter", "B5f", "B5b",
+                                          "B6f", "B6b+scatter")]
+    log(f"{label}: step ms (CUDA events) " + ", ".join(
+        f"{r['step']:.2f}" for r in split) + "".join(
+        f"; {k} " + ", ".join(f"{r[k]:.3f}" for r in split)
+        for k in marks))
 
     psnr = {}
     for mode in PREC_MODES:
         fitter.settings = with_mode(fitter.settings, mode)
         for _, c in counters:
             c.launches = 0
-        ev = fitter.evaluate(frames=list(PREC_EVAL_FRAMES))
+        ev = (evaluate or (lambda f, ids: f.evaluate(frames=ids)["psnr"]))(
+            fitter, list(PREC_EVAL_FRAMES))
         torch.cuda.synchronize()
         total = counts()
-        want = tuple(len(PREC_EVAL_FRAMES) if n == "B4" else 0
+        want = tuple(len(PREC_EVAL_FRAMES) if n == evaluator else 0
                      for n in names)
-        if total != want or not np.isfinite(ev["psnr"]):
-            raise AssertionError(f"precision phase: evaluation in "
+        if total != want or not np.isfinite(ev):
+            raise AssertionError(f"{label}: evaluation in "
                                  f"{mode_name(mode)}: launches {total}, "
-                                 f"PSNR {ev['psnr']}")
-        psnr[mode] = ev["psnr"]
+                                 f"PSNR {ev}")
+        psnr[mode] = ev
         if mode in launches:
-            launches[mode][2] = total[names.index("B4")]
-    log(f"precision phase: mean PSNR of frames {list(PREC_EVAL_FRAMES)} "
-        "of the fitted state through B4: " + ", ".join(
+            launches[mode][evaluator] = launches[mode].get(evaluator, 0) \
+                + total[names.index(evaluator)]
+    log(f"{label}: mean PSNR of frames {list(PREC_EVAL_FRAMES)} of the "
+        f"fitted state through {evaluator}: " + ", ".join(
             f"{mode_name(m)} {v:.6f} dB" for m, v in psnr.items()))
     worst = max(abs(v - psnr[PREC_MODES[0]]) for v in psnr.values())
     if worst > PREC_PSNR_DB:
-        raise AssertionError(f"precision phase: a mode's PSNR lies "
-                             f"{worst} dB from float32's")
+        raise AssertionError(f"{label}: a mode's PSNR lies {worst} dB "
+                             f"from float32's")
     del fitter
     return launches
 
@@ -1561,8 +1591,8 @@ def precision_phase(mirror, bidir, hk, fitter, dec, frames, counters):
     del pair, fs
     torch.cuda.empty_cache()
     launches = precision_fit(frames, hk, counters)
-    for mode, (l1, l2, l4) in launches.items():
-        for name, n in (("B1", l1), ("B2", l2), ("B4", l4)):
+    for mode, by_kernel in launches.items():
+        for name, n in by_kernel.items():
             nums[(name, mode)]["launches"] = n
     log(f"precision phase: {time.perf_counter() - t0:.1f} s")
     return {k: v for k, v in nums.items() if k[1] != PREC_MODES[0]}
@@ -1857,10 +1887,11 @@ def tile_check(tile, settings, attrs, lists, counts, label):
     f_plain = cuda_ms(lambda: tile.tile_fwd_plain(settings, planes, cnt), 1)
     b_plain = cuda_ms(lambda: tile.tile_bwd_plain(settings, planes, cnt,
                                                   chk_p, g_out), 1)
+    mode = (settings.compute_dtype, settings.matmul_dtype)
     fb = bound_ms(nbytes(*planes, cnt, out_p, chk_p),
-                  pairs_f * FLOPS_PER_PAIR)
+                  *mode_flops(mode, pairs_f, FLOPS_PER_PAIR))
     bb = bound_ms(nbytes(*planes, cnt, chk_p, g_out, gr_p),
-                  pairs_b * FLOPS_PER_BWD_PAIR)
+                  *mode_flops(mode, pairs_b, FLOPS_PER_BWD_PAIR))
     log(f"{label}: {cnt.numel()} rows ({v_n} views), {int(cnt.sum())} "
         f"copies, {int((cnt == 0).sum())} empty rows; B5f max |kernel - "
         f"plain| {fwd_err:.3e} (limit {MAX_ABS_ERR:.0e}; out, t_chk and the "
@@ -1877,8 +1908,9 @@ def tile_check(tile, settings, attrs, lists, counts, label):
     threads, ppt = tile.launch_shape(settings)
     log(f"{label}: B5f/B5b launch {threads} threads x {ppt} pixels; work "
         f"per block: {work}")
-    log(f"{label}: B5f {floors('B5f', pairs_f, heaviest, threads)}")
-    log(f"{label}: B5b {floors('B5b', pairs_b, heaviest, threads)}")
+    for kernel, pairs in (("B5f", pairs_f), ("B5b", pairs_b)):
+        log(f"{label}: {kernel} "
+            f"{floors(sass_key(kernel, mode), pairs, heaviest, threads)}")
     log(f"{label}: B5f {b5f_digest(out_k, chk_k)}")
     return (dict(ms=f_ms, kernel_ms=f_kernel, plain_ms=f_plain,
                  bound_ms=fb[0], bound_by=fb[1], max_abs_err=fwd_err),
@@ -2017,7 +2049,9 @@ def stream_bounds(settings, bins, pairs_f, pairs_b):
     the block counts read once; out4, the live blocks' checkpoints and
     (backward) the live slots' two views' gradients written once; g_out,
     out4's T row and the checkpoints read once; 25 / 49 FLOP per
-    evaluated (copy, pixel, view)."""
+    evaluated (copy, pixel, view) in float32, split by ``mode_flops`` in
+    the settings' precision mode."""
+    mode = (settings.compute_dtype, settings.matmul_dtype)
     p_pix = settings.tile_h * settings.tile_w
     live_slots = int((bins[0] >= 0).sum())
     live_blocks = int((bins[1] >= 0).sum())
@@ -2025,9 +2059,11 @@ def stream_bounds(settings, bins, pairs_f, pairs_b):
     rows = live_slots * 9 * 4 + nbytes(bins[3])
     out4 = n_out * 4 * p_pix * 4
     chk = 2 * live_blocks * p_pix * 4
-    fwd = bound_ms(rows + out4 + chk, pairs_f * FLOPS_PER_PAIR)
+    fwd = bound_ms(rows + out4 + chk,
+                   *mode_flops(mode, pairs_f, FLOPS_PER_PAIR))
     bwd = bound_ms(rows + n_out * p_pix * 4 + out4 + chk
-                   + 2 * live_slots * 9 * 4, pairs_b * FLOPS_PER_BWD_PAIR)
+                   + 2 * live_slots * 9 * 4,
+                   *mode_flops(mode, pairs_b, FLOPS_PER_BWD_PAIR))
     return fwd, bwd
 
 
@@ -2184,8 +2220,8 @@ def stream_kernel_phase(stream, mirror, fitter):
     """B6f/B6b against their plain versions and against B1/B2: on the
     synthetic 1080p tiles of the mirror-kernel phase (as a stream), and on
     the fitted state's pair 299-300 with copy_budget_factor 0 and 8,
-    each timed.  Returns (B6f numbers, B6b numbers) on the factor-8
-    pair (the last)."""
+    each timed.  Returns (B6f numbers, B6b numbers, the factor-8 pair's
+    settings and inputs (attrs, bins, lists, counts))."""
     import dataclasses
 
     from gsvc_tpu_torch.render.splat import (
@@ -2225,7 +2261,7 @@ def stream_kernel_phase(stream, mirror, fitter):
                                 counts, chk, label)
     b6f["max_abs_err"] = max(c["fwd_err"] for c in errs)
     b6b["max_abs_err"] = max(c["bwd_abs"] for c in errs)
-    return b6f, b6b
+    return b6f, b6b, (s, attrs, bins, lists, counts)
 
 
 def stream_cli_phase(ckpt, frames, want_psnr, counters):
@@ -2401,10 +2437,12 @@ NARROW_SET = {"optimization.iterations": NARROW_STEPS,
 
 def narrow_frames(frames, out_dir: pathlib.Path):
     """The 1080p frames resized on the card (bilinear with antialiasing,
-    deterministic) to NARROW, written as uint8 PNGs."""
+    deterministic) to NARROW, written as uint8 PNGs; returns them as one
+    uint8 array [N, 480, 854, 3]."""
     from PIL import Image
 
     out_dir.mkdir(parents=True)
+    out = []
     for i0 in range(0, len(frames), 50):
         x = torch.from_numpy(np.ascontiguousarray(frames[i0:i0 + 50])).cuda()
         x = x.permute(0, 3, 1, 2).float()
@@ -2412,9 +2450,11 @@ def narrow_frames(frames, out_dir: pathlib.Path):
                                             antialias=True,
                                             align_corners=False)
         u8 = torch.round(y.clamp(0, 255)).to(torch.uint8)
-        for j, fr in enumerate(u8.permute(0, 2, 3, 1).cpu().numpy()):
+        out.append(u8.permute(0, 2, 3, 1).cpu().numpy())
+        for j, fr in enumerate(out[-1]):
             Image.fromarray(fr).save(out_dir / f"f_{i0 + j:04d}.png",
                                      compress_level=1)
+    return np.concatenate(out)
 
 
 def narrow_phase(frames, bidir, mirror, tile, hk):
@@ -2426,7 +2466,8 @@ def narrow_phase(frames, bidir, mirror, tile, hk):
     once each, nothing else of the composites), per evaluation (B5f once
     per frame) and in all.  Then B5f/B5b against their plain versions on
     the fitted state's pair 299-300.  Returns (B5f numbers, B5b numbers,
-    the results)."""
+    the results, the per-phase medians, the pair's settings and inputs,
+    the resized frames)."""
     import gsvc_tpu_torch.report as report
     from gsvc_tpu_torch.cli import train as cli
     from gsvc_tpu_torch.config import load_config
@@ -2436,7 +2477,7 @@ def narrow_phase(frames, bidir, mirror, tile, hk):
 
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="gsvc_smoke_narrow_"))
     t0 = time.perf_counter()
-    narrow_frames(frames, tmp / "frames")
+    images = narrow_frames(frames, tmp / "frames")
     log(f"narrow-width phase: {len(frames)} frames resized on the card to "
         f"{NARROW[1]}x{NARROW[0]} PNGs in {time.perf_counter() - t0:.2f} s")
 
@@ -2554,8 +2595,9 @@ def narrow_phase(frames, bidir, mirror, tile, hk):
             f"{b5f_digest(*tile.tile_fwd_cuda(fitter.settings, planes, c))}")
     b5f.update(launches=total[0], step_ms=meds["FULL_PRECISION"]["B5f"])
     b5b.update(launches=total[1], step_ms=meds["FULL_PRECISION"]["B5b"])
+    pair = (fitter.settings, attrs, lists, cnt)
     del fitter
-    return b5f, b5b, res, meds
+    return b5f, b5b, res, meds, pair, images
 
 
 WHOLE_FRAMES = 16       # frames of the whole-video phase's video
@@ -3422,14 +3464,151 @@ def fit_study(which):
         torch.cuda.empty_cache()
 
 
+def stream_eval(frames):
+    """``evaluate`` for ``precision_fit``: the fitted state's frames
+    through the stream decode's render (``report.evaluate_video`` with
+    GSVC_RASTERIZER=pallas_stream: B6f's two views a frame), their mean
+    PSNR against ``frames`` (uint8)."""
+    import gsvc_tpu_torch.report as report
+    from gsvc_tpu_torch.models.gaussians import GenerateMode
+
+    def evaluate(fitter, ids):
+        d = fitter.dataset
+        old = os.environ.get("GSVC_RASTERIZER")
+        os.environ["GSVC_RASTERIZER"] = "pallas_stream"
+        try:
+            ev = report.evaluate_video(
+                fitter.state, fitter.gcfg, fitter.settings, fitter.window_cap,
+                [float(fitter.frame_zs[i]) for i in ids], d.x_min, d.y_min,
+                d.scale, gt_images={i: frames[i] / 255.0 for i in ids},
+                mode=GenerateMode.FULL_PRECISION, decoded=False,
+                compute_msssim=False, frame_ids=ids)
+        finally:
+            if old is None:
+                os.environ.pop("GSVC_RASTERIZER")
+            else:
+                os.environ["GSVC_RASTERIZER"] = old
+        return ev["psnr"]
+
+    return evaluate
+
+
+def precision_tile_stream_phase(tile, stream, mirror, hk, narrow_pair,
+                                stream_pair, f32, frames, images, counters):
+    """The precision phase's part for B5f/B5b and B6f/B6b, after the
+    narrow-width phase (whose fitted pair it takes).  In every mode past
+    float32: B5f/B5b on the 854x480 pair 299-300 (``tile_check``: B5f to
+    MAX_ABS_ERR, B5b to BWD_REL_ERR with two launches bit-identical) and
+    B6f/B6b on the fitted 1080p pair 299-300's copy stream at
+    copy_budget_factor 8, the stream phase's inputs (``stream_check``:
+    B6f to MAX_ABS_ERR and equal to B1 in the mode bit for bit, B6b to
+    BWD_REL_ERR), each timed alone and by the call beside float32's on
+    the same inputs (``f32``: the narrow and stream phases' numbers),
+    with its bound and SASS a pair; in every mode B5f over that 1080p
+    pair's forward views equal to B1's forward view bit for bit.  Then
+    two fits (``precision_fit``): 2 steps at 854x480 with matmul_dtype
+    "bf16x2" (B5f/B5b once a step, the evaluation B5f once a frame) and
+    2 steps at 1080p with the stream rasterizer, copy_budget_factor 8 and
+    matmul_dtype "bfloat16" (B6f/B6b once a step, the evaluation through
+    the stream decode's render, B6f once a frame), each with
+    PREC_EXTRA_STEPS steps in every other mode past float32.  Returns
+    {(kernel, mode): numbers with "launches"} for the modes past
+    float32."""
+    t0 = time.perf_counter()
+    n_set, n_attrs, n_lists, n_cnt = narrow_pair
+    s_set, s_attrs, bins, s_lists, s_counts = stream_pair
+    planes, cnt = view_planes(s_attrs, s_lists, s_counts)
+    t_n = s_set.n_tiles
+    out = {}
+    for mode in PREC_MODES:
+        sm = with_mode(s_set, mode)
+        out_5 = tile.tile_fwd_cuda(sm, planes, cnt)
+        out_1 = mirror.mirror_fwd_cuda(sm, s_attrs, s_lists, s_counts)
+        torch.cuda.synchronize()
+        fwd = (torch.arange(out_1[0].shape[0], device="cuda") // t_n) % 2 \
+            == 0
+        if not all(torch.equal(a, b[fwd]) for a, b in zip(out_5, out_1)):
+            raise AssertionError(f"precision phase ({mode_name(mode)}): "
+                                 f"B5f's out4 and t_chk differ from B1's "
+                                 f"forward view on frames 299-300")
+        if mode == PREC_MODES[0]:
+            continue
+        label = f"precision phase ({mode_name(mode)}"
+        b5f, b5b = tile_check(tile, with_mode(n_set, mode), n_attrs,
+                              n_lists, n_cnt, f"{label}, 854x480 pair "
+                              f"299-300)")
+        chk = stream_check(stream, mirror, sm, s_attrs, bins, s_lists,
+                           s_counts, f"{label}, stream of frames 299-300, "
+                           f"copy_budget_factor 8)")
+        rows, out_p, chk_p, g_out = chk["aux"]
+
+        def b6f(sm=sm, rows=rows):
+            return stream.stream_fwd_cuda(sm, rows, *bins)
+
+        def b6b(sm=sm, rows=rows, out_p=out_p, chk_p=chk_p, g_out=g_out):
+            return stream.stream_bwd_cuda(sm, rows, *bins, out_p, chk_p,
+                                          g_out)
+
+        fb, bb = stream_bounds(sm, bins, chk["pairs_f"], chk["pairs_b"])
+        b6f_d = dict(ms=cuda_ms(b6f, 10),
+                     kernel_ms=kernel_ms(b6f, "stream_fwd_kernel", 10)[0],
+                     plain_ms=cuda_ms(lambda: stream.stream_fwd_plain(
+                         sm, rows, *bins), 1),
+                     bound_ms=fb[0], bound_by=fb[1],
+                     max_abs_err=chk["fwd_err"])
+        b6b_d = dict(ms=cuda_ms(b6b, 5),
+                     kernel_ms=kernel_ms(b6b, "stream_bwd_kernel", 5)[0],
+                     plain_ms=cuda_ms(lambda: stream.stream_bwd_plain(
+                         sm, rows, *bins, out_p, chk_p, g_out), 1),
+                     bound_ms=bb[0], bound_by=bb[1],
+                     max_abs_err=chk["bwd_abs"])
+        for name, d in (("B5f", b5f), ("B5b", b5b), ("B6f", b6f_d),
+                        ("B6b", b6b_d)):
+            d["sass"] = SASS_PER_PAIR.get(sass_key(name, mode))
+            out[(name, mode)] = d
+            sass = ("not measured" if d["sass"] is None else
+                    "-".join(f"{v:.1f}" for v in sorted(set(d["sass"]))))
+            log(f"{label}): {name} max |kernel - plain| "
+                f"{d['max_abs_err']:.3e}; alone {d['kernel_ms']:.4f} ms "
+                f"({d['kernel_ms'] / f32[name]['kernel_ms']:.3f}x "
+                f"float32's), call {d['ms']:.4f} ms "
+                f"({d['ms'] / f32[name]['ms']:.3f}x), plain "
+                f"{d['plain_ms']:.3f} ms, bound {d['bound_ms']:.4f} ms "
+                f"({d['bound_by']}); {sass} SASS instructions a pair")
+        del chk, rows, out_p, chk_p, g_out
+    log(f"precision phase: B5f equals B1's forward view on frames 299-300 "
+        f"in every mode; kernels in {time.perf_counter() - t0:.1f} s")
+    del planes, cnt
+    torch.cuda.empty_cache()
+    launches = precision_fit(images, hk, counters,
+                             "precision phase (854x480 fit)",
+                             fit_mode=("float32", "bf16x2"), steps=2,
+                             kernels=("B5f", "B5b"), evaluator="B5f")
+    torch.cuda.empty_cache()
+    for mode, by_kernel in precision_fit(
+            frames, hk, counters, "precision phase (pallas_stream fit)",
+            fit_mode=("float32", "bfloat16"), steps=2, overrides=STREAM_SET,
+            kernels=("B6f", "B6b"), evaluator="B6f",
+            evaluate=stream_eval(frames)).items():
+        launches.setdefault(mode, {}).update(by_kernel)
+    for mode, by_kernel in launches.items():
+        for name, n in by_kernel.items():
+            out[(name, mode)]["launches"] = n
+    log(f"precision phase (B5f/B5b, B6f/B6b): "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def kernel_times() -> None:
-    """``--kernel-times``: float32 B1, B2 and B4 on the kernel phase's
-    synthetic 1080p tiles, each alone (torch.profiler) and by the call,
-    on one line; run from the root of each of two trees in turns (parent,
-    change, change, parent) to compare their kernels on one card."""
+    """``--kernel-times``: float32 B1, B2, B4, B5f, B5b, B6f and B6b on
+    the kernel phases' synthetic 1080p tiles (B5 on four views' planes, B6
+    on two frames' copy stream), each alone (torch.profiler) and by the
+    call, on one line; run from the root of each of two trees in turns
+    (parent, change, change, parent) to compare their kernels on one
+    card."""
     from gsvc_tpu_torch import build
-    from gsvc_tpu_torch.render import bidir, mirror
-    from gsvc_tpu_torch.render.splat import RasterSettings
+    from gsvc_tpu_torch.render import bidir, mirror, stream, tile
+    from gsvc_tpu_torch.render.splat import RasterSettings, stream_blocks_max
 
     build.build()
     dec = RasterSettings(image_height=1080, image_width=1920, threshold=0.1,
@@ -3444,13 +3623,29 @@ def kernel_times() -> None:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
     g = torch.randn(out.shape, generator=gen, device="cuda")
+    planes, cnt = view_planes(*synthetic_frames(tr, seed=3, n_frames=4,
+                                                device="cuda"))
+    out5, chk5 = tile.tile_fwd_cuda(tr, planes, cnt)
+    g5 = torch.randn(out5.shape, generator=gen, device="cuda")
+    bins = stream.stream_from_tile_lists(
+        tr, fl, fc, stream_blocks_max(tr, fa.shape[1]))
+    rows = stream.stream_rows(fa, bins[0])
+    out6, chk6 = stream.stream_fwd_cuda(tr, rows, *bins)
     calls = {
         "B1": (lambda: mirror.mirror_fwd_cuda(tr, fa, fl, fc),
                "mirror_fwd_kernel", 10),
         "B2": (lambda: mirror.mirror_bwd_cuda(tr, fa, fl, fc, out, chk, g),
                "mirror_bwd_kernel", 5),
         "B4": (lambda: bidir.bidir_out4_cuda(dec, a, l, c), "bidir_kernel",
-               20)}
+               20),
+        "B5f": (lambda: tile.tile_fwd_cuda(tr, planes, cnt),
+                "tile_fwd_kernel", 10),
+        "B5b": (lambda: tile.tile_bwd_cuda(tr, planes, cnt, out5, chk5, g5),
+                "tile_bwd_kernel", 5),
+        "B6f": (lambda: stream.stream_fwd_cuda(tr, rows, *bins),
+                "stream_fwd_kernel", 10),
+        "B6b": (lambda: stream.stream_bwd_cuda(tr, rows, *bins, out6, chk6,
+                                               g), "stream_bwd_kernel", 5)}
     log(f"kernel times ({pathlib.Path(__file__).resolve().parent}): "
         + "; ".join(f"{k} alone {kernel_ms(fn, name, n)[0]:.4f} ms, call "
                     f"{cuda_ms(fn, n):.4f} ms"
@@ -3518,7 +3713,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     (h3f, h3b), (c3f, c3b) = hashgrid_phase(hk, fitter)
     codec = codec_phase(fitter, bidir, mirror, tile, hk)
-    b6f, b6b = stream_kernel_phase(stream, mirror, fitter)
+    b6f, b6b, stream_pair = stream_kernel_phase(stream, mirror, fitter)
     ckpt = pathlib.Path(tempfile.mkdtemp(prefix="gsvc_smoke_ckpt_")) \
         / "chkpnt_fitted.pkl"
     save_checkpoint(str(ckpt), fitter, TRAIN_STEPS)
@@ -3545,7 +3740,14 @@ def main() -> int:
                step_ms=stream_meds["FULL_PRECISION"]["B6f"])
     b6b.update(launches=fit_b6[1],
                step_ms=stream_meds["FULL_PRECISION"]["B6b+scatter"])
-    b5f, b5b, _, _ = narrow_phase(frames, bidir, mirror, tile, hk)
+    b5f, b5b, _, _, narrow_pair, images = narrow_phase(frames, bidir, mirror,
+                                                       tile, hk)
+    torch.cuda.empty_cache()
+    prec.update(precision_tile_stream_phase(
+        tile, stream, mirror, hk, narrow_pair, stream_pair,
+        {"B5f": b5f, "B5b": b5b, "B6f": b6f, "B6b": b6b}, frames, images,
+        counters))
+    del narrow_pair, stream_pair, images
     torch.cuda.empty_cache()
     whole, whole_root, seq_wall = whole_video_phase(
         frames, hk, counters + (("B3f", hk.hashgrid_forward),
@@ -3676,18 +3878,25 @@ def main() -> int:
         "bound_by": b6b["bound_by"],
         "library_ms": None,   # no PyTorch call computes a stream composite
     }]}
-    # B1, B2 and B4 in each precision mode past float32: the precision
-    # phase's kernels and its fit
-    entry = {"B1": ("mirror_forward", "mirror_fwd.cu", 636),
-             "B2": ("mirror_backward", "mirror_bwd.cu", 699),
-             "B4": ("bidir_composite_attrs", "bidir.cu", 1074)}
+    # every compositing kernel in each precision mode past float32: the
+    # precision phase's kernels and its fits
+    entry = {"B1": ("mirror_forward", "mirror_fwd.cu", "pallas_splat.py:636"),
+             "B2": ("mirror_backward", "mirror_bwd.cu", "pallas_splat.py:699"),
+             "B4": ("bidir_composite_attrs", "bidir.cu",
+                    "pallas_splat.py:1074"),
+             "B5f": ("tile_forward", "tile_fwd.cu", "pallas_splat.py:277"),
+             "B5b": ("tile_backward", "tile_bwd.cu", "pallas_splat.py:349"),
+             "B6f": ("stream_forward", "stream_fwd.cu",
+                     "pallas_stream.py:103"),
+             "B6b": ("stream_backward", "stream_bwd.cu",
+                     "pallas_stream.py:172")}
     for (kernel, mode), d in prec.items():
         name, src, line = entry[kernel]
         table["kernels"].append({
             "name": f"{name}[compute_dtype={mode[0]},matmul_dtype={mode[1]}]",
             "route": "cuda",
             "source": f"gsvc_tpu_torch/csrc/{src}",
-            "replaces": f"gsvc_tpu/render/pallas_splat.py:{line}",
+            "replaces": f"gsvc_tpu/render/{line}",
             "launches": d["launches"],
             "max_abs_err": d["max_abs_err"],
             "ms": d["ms"],

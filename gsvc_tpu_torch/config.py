@@ -4,7 +4,8 @@ Field names, defaults and the YAML overlay are identical to the JAX
 package, so ``cfgs/*.yaml`` files and the ``model_config`` dict a
 bitstream carries load unchanged.  The JAX package's execution knobs are
 kept so configs round-trip; among them ``pipeline.matmul_dtype`` is the
-compositing precision mode of kernels B1/B2 and B4 (``render/mirror.py``).
+compositing precision mode of every compositing kernel
+(``render/mirror.py``).
 """
 
 from __future__ import annotations

@@ -76,7 +76,6 @@ using gsvc::column_mode;
 using gsvc::cp_async_commit;
 using gsvc::cp_async_wait_all;
 using gsvc::finish_rows;
-using gsvc::kAlphaBf16;
 using gsvc::kMaxChunk;
 using gsvc::kMaxThreads;
 using gsvc::kTEps;
@@ -365,18 +364,10 @@ extern "C" int bidir_composite(const float* attrs, const int* lists, const int* 
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t err;
-#define GSVC_BIDIR_MODE(M)                                                             \
-  err = launch<M>(&cfg, ppt, attrs, lists, counts, order, out, m, n_tiles, n_tiles_x, \
-                  tile_w, cap, chunk, bg)
-  switch (mode) {
-    case 0: GSVC_BIDIR_MODE(0); break;
-    case kAlphaBf16: GSVC_BIDIR_MODE(kAlphaBf16); break;
-    case kTransBf16: GSVC_BIDIR_MODE(kTransBf16); break;
-    case kAlphaBf16 | kTransBf16: GSVC_BIDIR_MODE(kAlphaBf16 | kTransBf16); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef GSVC_BIDIR_MODE
+  const cudaError_t err = gsvc::forward_mode(mode, [&](auto md) {
+    return launch<decltype(md)::value>(&cfg, ppt, attrs, lists, counts, order, out, m,
+                                       n_tiles, n_tiles_x, tile_w, cap, chunk, bg);
+  });
   // clears the error a refused launch leaves, so no later launch reports it
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(err != cudaSuccess ? err : last);

@@ -76,12 +76,10 @@ using gsvc::bf16_round;
 using gsvc::cp_async_commit;
 using gsvc::cp_async_wait_all;
 using gsvc::finish_rows;
-using gsvc::kAlphaBf16;
 using gsvc::kGradBf16;
 using gsvc::kMaxChunk;
 using gsvc::kMaxThreads;
 using gsvc::kMaxWarps;
-using gsvc::kTransBf16;
 using gsvc::kSums;
 using gsvc::kTEps;
 using gsvc::replay_chunk;
@@ -250,20 +248,9 @@ extern "C" int mirror_backward(const float* attrs, const int* lists, const int* 
   if (blocks == 0) return 0;
   const size_t smem = static_cast<size_t>(threads / 32) * kSums * chunk * sizeof(float);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-#define GSVC_MIRROR_BWD_MODE(M)                                                          \
-  err = launch<M>(ppt, blocks, threads, smem, st, attrs, lists, counts, out4, tchk, gout, \
-                  grads, m, n_tiles, n_tiles_x, tile_w, cap, chunk)
-  switch (mode) {
-    case 0: GSVC_MIRROR_BWD_MODE(0); break;
-    case kGradBf16: GSVC_MIRROR_BWD_MODE(kGradBf16); break;
-    case kGradBf16 | kAlphaBf16: GSVC_MIRROR_BWD_MODE(kGradBf16 | kAlphaBf16); break;
-    case kGradBf16 | kTransBf16: GSVC_MIRROR_BWD_MODE(kGradBf16 | kTransBf16); break;
-    case kGradBf16 | kAlphaBf16 | kTransBf16:
-      GSVC_MIRROR_BWD_MODE(kGradBf16 | kAlphaBf16 | kTransBf16);
-      break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef GSVC_MIRROR_BWD_MODE
-  return static_cast<int>(err);
+  return static_cast<int>(gsvc::backward_mode(mode, [&](auto md) {
+    return launch<decltype(md)::value>(ppt, blocks, threads, smem, st, attrs, lists, counts,
+                                       out4, tchk, gout, grads, m, n_tiles, n_tiles_x,
+                                       tile_w, cap, chunk);
+  }));
 }

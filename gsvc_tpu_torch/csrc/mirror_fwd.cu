@@ -56,7 +56,6 @@ using gsvc::column_mode;
 using gsvc::cp_async_commit;
 using gsvc::cp_async_wait_all;
 using gsvc::finish_rows;
-using gsvc::kAlphaBf16;
 using gsvc::kTransBf16;
 using gsvc::kMaxChunk;
 using gsvc::kMaxThreads;
@@ -210,17 +209,9 @@ extern "C" int mirror_forward(const float* attrs, const int* lists, const int* c
   const int blocks = 2 * n_frames * n_tiles;
   if (blocks == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-#define GSVC_MIRROR_FWD_MODE(M)                                                       \
-  err = launch<M>(ppt, blocks, threads, st, attrs, lists, counts, out, tchk, m, n_tiles, \
-                  n_tiles_x, tile_w, cap, chunk, bg)
-  switch (mode) {
-    case 0: GSVC_MIRROR_FWD_MODE(0); break;
-    case kAlphaBf16: GSVC_MIRROR_FWD_MODE(kAlphaBf16); break;
-    case kTransBf16: GSVC_MIRROR_FWD_MODE(kTransBf16); break;
-    case kAlphaBf16 | kTransBf16: GSVC_MIRROR_FWD_MODE(kAlphaBf16 | kTransBf16); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef GSVC_MIRROR_FWD_MODE
-  return static_cast<int>(err);
+  return static_cast<int>(gsvc::forward_mode(mode, [&](auto md) {
+    return launch<decltype(md)::value>(ppt, blocks, threads, st, attrs, lists, counts, out,
+                                       tchk, m, n_tiles, n_tiles_x, tile_w, cap, chunk,
+                                       bg);
+  }));
 }

@@ -17,16 +17,18 @@
 // Every product and sum before the alpha is rounded on its own, in the plain PyTorch
 // versions' order (alpha_col), so every kernel evaluates the same alphas bit for bit.
 //
-// The precision modes of B1, B2 and B4 (render/bidir.py check_precision, the table in
-// render/mirror.py) are a template parameter MODE of their kernels, the bits below;
-// MODE 0 is the float32 code.  compute_dtype "bfloat16" evaluates the alpha of two rows
-// of a column at once in __nv_bfloat162 lanes (ColumnBf16, alpha_col2), matmul_dtype
-// "bfloat16" takes each copy's in-chunk transmittance factor from a bf16 log
-// (trans_factor), and every mode but float32 rounds the backward's products' operands
-// to bf16 (replay_chunk).
+// The precision modes of every compositing kernel (render/bidir.py check_precision, the
+// table in render/mirror.py) are a template parameter MODE of the kernels, the bits
+// below; MODE 0 is the float32 code.  compute_dtype "bfloat16" evaluates the alpha of
+// two rows of a column at once in __nv_bfloat162 lanes (ColumnBf16, alpha_col2),
+// matmul_dtype "bfloat16" takes each copy's in-chunk transmittance factor from a bf16
+// log (trans_factor), and every mode but float32 rounds the backward's products'
+// operands to bf16 (replay_chunk).
 #pragma once
 
 #include <cuda_bf16.h>
+
+#include <type_traits>
 
 #include "composite.cuh"
 
@@ -35,6 +37,37 @@ namespace gsvc {
 constexpr int kAlphaBf16 = 1;  // compute_dtype "bfloat16"
 constexpr int kTransBf16 = 2;  // matmul_dtype "bfloat16"
 constexpr int kGradBf16 = 4;   // any mode but float32 / float32
+
+// The modes a forward kernel takes (the alpha and transmittance bits: B1, B4, B5f, B6f)
+// and those a backward kernel takes (float32, or kGradBf16 with any of the others: B2,
+// B5b, B6b).  Each calls launch(Mode<MODE>{}) for `mode` and refuses any other value
+// with cudaErrorInvalidValue: no kernel runs another mode in its place.
+template <int M>
+using Mode = std::integral_constant<int, M>;
+
+template <typename Launch>
+cudaError_t forward_mode(int mode, Launch&& launch) {
+  switch (mode) {
+    case 0: return launch(Mode<0>{});
+    case kAlphaBf16: return launch(Mode<kAlphaBf16>{});
+    case kTransBf16: return launch(Mode<kTransBf16>{});
+    case kAlphaBf16 | kTransBf16: return launch(Mode<kAlphaBf16 | kTransBf16>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename Launch>
+cudaError_t backward_mode(int mode, Launch&& launch) {
+  switch (mode) {
+    case 0: return launch(Mode<0>{});
+    case kGradBf16: return launch(Mode<kGradBf16>{});
+    case kGradBf16 | kAlphaBf16: return launch(Mode<kGradBf16 | kAlphaBf16>{});
+    case kGradBf16 | kTransBf16: return launch(Mode<kGradBf16 | kTransBf16>{});
+    case kGradBf16 | kAlphaBf16 | kTransBf16:
+      return launch(Mode<kGradBf16 | kAlphaBf16 | kTransBf16>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -300,7 +333,7 @@ __device__ __forceinline__ void reduce_pair(const float (&a)[kSums], const float
 // copies per warp reduction.  The walk stops after the first pair of copies past which
 // no pixel of the warp is live (T only falls, so every later term is zero).  Returns
 // the number of copies walked (in composite order); the caller reads no sums past it.
-template <int PPT, int MODE = 0>
+template <int PPT, int MODE>
 __device__ __forceinline__ int replay_chunk(const Stage& st, int chunk, bool flip,
                                             Pixels<PPT>& px, float* red, int red_stride) {
   constexpr bool kRound = (MODE & kGradBf16) != 0;

@@ -54,6 +54,13 @@
 //     block p + 1's nine plane runs into the other of two stages (replay.cuh
 //     stage_planes); each thread makes its own slots tile-local after they land
 //     (finish_planes), and the block's barrier at the next block publishes them.
+//
+// Precision modes (template parameter MODE; render/mirror.py's table), as kernel B2
+// takes them: B6f's alphas and in-block factors in the same mode, and under every mode
+// but float32 the products' operands rounded to bf16: the cotangent g once as it is
+// loaded (so the suffix total comes from it too), the colours in dL/da's c . g, and dq,
+// d0, d1 and w in the nine pixel sums.  The running sum of w (c . g) keeps float32
+// colours and w, so each suffix stays the difference of two sums of the same terms.
 #include "replay.cuh"
 
 namespace {
@@ -61,9 +68,11 @@ namespace {
 using gsvc::Pixels;
 using gsvc::Planes;
 using gsvc::Stage;
+using gsvc::bf16_round;
 using gsvc::cp_async_commit;
 using gsvc::cp_async_wait_all;
 using gsvc::finish_planes;
+using gsvc::kGradBf16;
 using gsvc::kMaxChunk;
 using gsvc::kMaxThreads;
 using gsvc::kMaxWarps;
@@ -73,7 +82,7 @@ using gsvc::opt_in_smem;
 using gsvc::replay_chunk;
 using gsvc::stage_planes;
 
-template <int PPT>
+template <int PPT, int MODE>
 __global__ void __launch_bounds__(kMaxThreads, 2)
 stream_bwd_kernel(const float* __restrict__ rows, const int* __restrict__ nblk,
                   const int* __restrict__ first, const int* __restrict__ nlive,
@@ -117,9 +126,11 @@ stream_bwd_kernel(const float* __restrict__ rows, const int* __restrict__ nblk,
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
     const int lin = threadIdx.x + k * blockDim.x;
-    px.g[k][0] = go[lin];
-    px.g[k][1] = go[p_pix + lin];
-    px.g[k][2] = go[2 * p_pix + lin];
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const float gq = go[q * p_pix + lin];
+      px.g[k][q] = (MODE & kGradBf16) ? bf16_round(gq) : gq;
+    }
     px.s[k] = o4[3 * p_pix + lin] * go[3 * p_pix + lin] + px.g[k][0] * o4[lin] +
               px.g[k][1] * o4[p_pix + lin] + px.g[k][2] * o4[2 * p_pix + lin];
     px.pre[k] = 0.0f;
@@ -155,7 +166,9 @@ stream_bwd_kernel(const float* __restrict__ rows, const int* __restrict__ nblk,
     const int n_after = p + 2 < nb ? nlive[block_at(p + 2)] : 0;
     const Stage& S = st[s];
     const int n_walked =
-        __any_sync(0xffffffffu, live) ? replay_chunk(S, n, v, px, my_red, chunk) : 0;
+        __any_sync(0xffffffffu, live)
+            ? replay_chunk<PPT, MODE>(S, n, v, px, my_red, chunk)
+            : 0;
     if ((threadIdx.x & 31) == 0) walked[warp] = n_walked;
     __syncthreads();
 
@@ -191,6 +204,31 @@ stream_bwd_kernel(const float* __restrict__ rows, const int* __restrict__ nblk,
   }
 }
 
+template <int MODE>
+cudaError_t launch(int ppt, int blocks, int threads, size_t smem, cudaStream_t st,
+                   const float* rows, const int* nblk, const int* first, const int* nlive,
+                   const float* out4, const float* tchk, const float* gout, float* grads,
+                   size_t n_slots, size_t n_blocks, int n_tiles, int n_tiles_x,
+                   int tile_w, int chunk) {
+  cudaError_t err;
+#define GSVC_STREAM_BWD_LAUNCH(P)                                                    \
+  err = opt_in_smem(stream_bwd_kernel<P, MODE>, smem);                               \
+  if (err != cudaSuccess) return err;                                                \
+  stream_bwd_kernel<P, MODE><<<blocks, threads, smem, st>>>(                         \
+      rows, nblk, first, nlive, out4, tchk, gout, grads, n_slots, n_blocks, n_tiles, \
+      n_tiles_x, tile_w, chunk)
+  switch (ppt) {
+    case 1: GSVC_STREAM_BWD_LAUNCH(1); break;
+    case 2: GSVC_STREAM_BWD_LAUNCH(2); break;
+    case 4: GSVC_STREAM_BWD_LAUNCH(4); break;
+    case 8: GSVC_STREAM_BWD_LAUNCH(8); break;
+    case 16: GSVC_STREAM_BWD_LAUNCH(16); break;
+    default: return cudaErrorInvalidValue;
+  }
+#undef GSVC_STREAM_BWD_LAUNCH
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches one block per (data tile, view) step on `stream`: 2 * n_frames * n_tiles
@@ -200,13 +238,15 @@ stream_bwd_kernel(const float* __restrict__ rows, const int* __restrict__ nblk,
 // i32, nlive [n_frames * b_max] i32 (each block's live slots, a prefix of the block),
 // out4 (B6f's output) and gout [2 * n_frames * n_tiles, 4, P] f32 in output (view) row
 // order, tchk [2, n_frames * b_max, P] f32, grads [2, 9, n_slots] f32, zeroed by the
-// caller (the kernel writes only the slots it replays); P = threads * ppt.  `bg` is
-// unused: out4 holds it.  Returns cudaGetLastError() after the launch (0 on success).
+// caller (the kernel writes only the slots it replays); P = threads * ppt.  `mode` is
+// render/bidir.py check_precision's bits: 0 (float32), kGradBf16 alone (bf16x2) or with
+// kAlphaBf16 and/or kTransBf16; any other value is refused.  `bg` is unused: out4 holds
+// it.  Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int stream_backward(const float* rows, const int* nblk, const int* first,
                                const int* nlive, const float* out4, const float* tchk,
                                const float* gout, float* grads, int n_frames, int n_tiles,
                                int n_tiles_x, int tile_w, int chunk, int b_max, int threads,
-                               int ppt, float bg, void* stream) {
+                               int ppt, int mode, float bg, void* stream) {
   if (chunk <= 0 || chunk > kMaxChunk || threads < 32 || threads > kMaxThreads ||
       threads % 32 != 0 || tile_w <= 0 || threads % tile_w != 0 || b_max <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -216,22 +256,9 @@ extern "C" int stream_backward(const float* rows, const int* nblk, const int* fi
   const size_t n_slots = n_blocks * chunk;
   const size_t smem = static_cast<size_t>(threads / 32) * kSums * chunk * sizeof(float);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-#define GSVC_STREAM_BWD_LAUNCH(P)                                                     \
-  err = opt_in_smem(stream_bwd_kernel<P>, smem);                                      \
-  if (err != cudaSuccess) return static_cast<int>(err);                               \
-  stream_bwd_kernel<P><<<blocks, threads, smem, st>>>(rows, nblk, first, nlive, out4, \
-                                                      tchk, gout, grads, n_slots,     \
-                                                      n_blocks, n_tiles, n_tiles_x,   \
-                                                      tile_w, chunk)
-  switch (ppt) {
-    case 1: GSVC_STREAM_BWD_LAUNCH(1); break;
-    case 2: GSVC_STREAM_BWD_LAUNCH(2); break;
-    case 4: GSVC_STREAM_BWD_LAUNCH(4); break;
-    case 8: GSVC_STREAM_BWD_LAUNCH(8); break;
-    case 16: GSVC_STREAM_BWD_LAUNCH(16); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef GSVC_STREAM_BWD_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(gsvc::backward_mode(mode, [&](auto m) {
+    return launch<decltype(m)::value>(ppt, blocks, threads, smem, st, rows, nblk, first,
+                                      nlive, out4, tchk, gout, grads, n_slots, n_blocks,
+                                      n_tiles, n_tiles_x, tile_w, chunk);
+  }));
 }

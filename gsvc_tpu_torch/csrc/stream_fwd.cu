@@ -39,24 +39,36 @@
 // 0, zero alpha) is neither staged nor walked.  Stops are B1's, block-granular: a block
 // runs only while some pixel of the tile keeps T >= T_EPS, and each pixel is gated by
 // t_before >= T_EPS.  The two views of a data tile are independent blocks.
+//
+// Precision modes (template parameter MODE; render/mirror.py's table), as kernel B1
+// takes them: in compute_dtype "bfloat16" a thread evaluates the alphas of two rows of
+// its column at once in __nv_bfloat162 lanes (replay.cuh alpha_at / alpha_col2, bit for
+// bit the plain version's bf16 alpha); in matmul_dtype "bfloat16" each copy's in-block
+// factor is exp(bf16(log1p(-a))) beside the block's float32 product of (1 - a), which
+// carries T to the next block and into the checkpoints (the TPU kernel's t_scr carries
+// its chunk_t).  MODE 0 is the float32 kernel.
 #include "replay.cuh"
 
 namespace {
 
+using gsvc::Alpha;
 using gsvc::Column;
+using gsvc::ColumnBf16;
 using gsvc::Planes;
 using gsvc::Stage;
-using gsvc::alpha_col;
-using gsvc::column_at;
+using gsvc::alpha_at;
+using gsvc::column_mode;
 using gsvc::cp_async_commit;
 using gsvc::cp_async_wait_all;
 using gsvc::finish_planes;
 using gsvc::kMaxChunk;
 using gsvc::kMaxThreads;
 using gsvc::kTEps;
+using gsvc::kTransBf16;
 using gsvc::stage_planes;
+using gsvc::trans_factor;
 
-template <int PPT>
+template <int PPT, int MODE>
 __global__ void __launch_bounds__(kMaxThreads)
 stream_fwd_kernel(const float* __restrict__ rows, const int* __restrict__ nblk,
                   const int* __restrict__ first, const int* __restrict__ nlive,
@@ -125,14 +137,18 @@ stream_fwd_kernel(const float* __restrict__ rows, const int* __restrict__ nblk,
     const int n_after = p + 2 < nb ? nlive[block_at(p + 2)] : 0;
 
     const Stage& S = st[s];
-    float e[PPT];
+    // e: the in-block product of the copies' factors; pm: the block's float32
+    // product of (1 - a), the same as e but in matmul_dtype "bfloat16"
+    float e[PPT], pm[PPT];
 #pragma unroll
-    for (int k = 0; k < PPT; ++k) e[k] = 1.0f;
+    for (int k = 0; k < PPT; ++k) e[k] = pm[k] = 1.0f;
     for (int j = 0; j < n; ++j) {
-      const Column c = column_at(S, v ? n - 1 - j : j, x);
+      const ColumnBf16 cm = column_mode<MODE>(S, v ? n - 1 - j : j, x);
+      const Column& c = cm.f;
+      Alpha next;
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
-        const float a = alpha_col(c, ys[k]).a;
+        const float a = alpha_at<MODE>(cm, ys, k, next).a;
         const float tb = t[k] * e[k];
         if (tb >= kTEps) {
           const float w = a * tb;
@@ -140,11 +156,12 @@ stream_fwd_kernel(const float* __restrict__ rows, const int* __restrict__ nblk,
           acc[k][1] += w * c.g;
           acc[k][2] += w * c.b;
         }
-        e[k] *= 1.0f - a;
+        e[k] *= trans_factor<MODE>(a);
+        if (MODE & kTransBf16) pm[k] *= 1.0f - a;
       }
     }
 #pragma unroll
-    for (int k = 0; k < PPT; ++k) t[k] *= e[k];
+    for (int k = 0; k < PPT; ++k) t[k] *= (MODE & kTransBf16) ? pm[k] : e[k];
     cp_async_wait_all();
     if (p + 1 < nb) finish_planes(st[s ^ 1], n_next, cx, cy);
     n = n_next;
@@ -164,6 +181,27 @@ stream_fwd_kernel(const float* __restrict__ rows, const int* __restrict__ nblk,
   }
 }
 
+template <int MODE>
+cudaError_t launch(int ppt, int blocks, int threads, cudaStream_t st, const float* rows,
+                   const int* nblk, const int* first, const int* nlive, float* out,
+                   float* tchk, size_t n_slots, size_t n_blocks, int n_tiles,
+                   int n_tiles_x, int tile_w, int chunk, float bg) {
+#define GSVC_STREAM_FWD_LAUNCH(P)                                                    \
+  stream_fwd_kernel<P, MODE><<<blocks, threads, 0, st>>>(                            \
+      rows, nblk, first, nlive, out, tchk, n_slots, n_blocks, n_tiles, n_tiles_x,    \
+      tile_w, chunk, bg)
+  switch (ppt) {
+    case 1: GSVC_STREAM_FWD_LAUNCH(1); break;
+    case 2: GSVC_STREAM_FWD_LAUNCH(2); break;
+    case 4: GSVC_STREAM_FWD_LAUNCH(4); break;
+    case 8: GSVC_STREAM_FWD_LAUNCH(8); break;
+    case 16: GSVC_STREAM_FWD_LAUNCH(16); break;
+    default: return cudaErrorInvalidValue;
+  }
+#undef GSVC_STREAM_FWD_LAUNCH
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches one block per (data tile, view) step on `stream`: 2 * n_frames * n_tiles
@@ -172,12 +210,14 @@ stream_fwd_kernel(const float* __restrict__ rows, const int* __restrict__ nblk,
 // [n_frames * n_tiles] i32 (each tile's block count and first stream block, frame
 // offsets f * b_max included), nlive [n_frames * b_max] i32 (each block's live slots, a
 // prefix of the block), out [2 * n_frames * n_tiles, 4, threads * ppt] f32, tchk
-// [2, n_frames * b_max, threads * ppt] f32 or null (inference).  Returns
+// [2, n_frames * b_max, threads * ppt] f32 or null (inference).  `mode` is
+// render/bidir.py check_precision's kAlphaBf16 and kTransBf16 bits (0: float32; a
+// forward under bf16x2 is the float32 one); any other value is refused.  Returns
 // cudaGetLastError() after the launch (0 on success).
 extern "C" int stream_forward(const float* rows, const int* nblk, const int* first,
                               const int* nlive, float* out, float* tchk, int n_frames,
                               int n_tiles, int n_tiles_x, int tile_w, int chunk, int b_max,
-                              int threads, int ppt, float bg, void* stream) {
+                              int threads, int ppt, int mode, float bg, void* stream) {
   if (chunk <= 0 || chunk > kMaxChunk || threads <= 0 || threads > kMaxThreads ||
       tile_w <= 0 || threads % tile_w != 0 || b_max <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -186,18 +226,9 @@ extern "C" int stream_forward(const float* rows, const int* nblk, const int* fir
   const size_t n_blocks = static_cast<size_t>(n_frames) * b_max;
   const size_t n_slots = n_blocks * chunk;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define GSVC_STREAM_FWD_LAUNCH(P)                                                     \
-  stream_fwd_kernel<P><<<blocks, threads, 0, st>>>(rows, nblk, first, nlive, out,     \
-                                                   tchk, n_slots, n_blocks, n_tiles,  \
-                                                   n_tiles_x, tile_w, chunk, bg)
-  switch (ppt) {
-    case 1: GSVC_STREAM_FWD_LAUNCH(1); break;
-    case 2: GSVC_STREAM_FWD_LAUNCH(2); break;
-    case 4: GSVC_STREAM_FWD_LAUNCH(4); break;
-    case 8: GSVC_STREAM_FWD_LAUNCH(8); break;
-    case 16: GSVC_STREAM_FWD_LAUNCH(16); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef GSVC_STREAM_FWD_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(gsvc::forward_mode(mode, [&](auto m) {
+    return launch<decltype(m)::value>(ppt, blocks, threads, st, rows, nblk, first, nlive,
+                                      out, tchk, n_slots, n_blocks, n_tiles, n_tiles_x,
+                                      tile_w, chunk, bg);
+  }));
 }

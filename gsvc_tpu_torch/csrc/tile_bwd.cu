@@ -50,6 +50,13 @@
 //     c + 1's nine plane runs into the other of two stages (replay.cuh stage_planes);
 //     each thread makes its own slots tile-local after they land (finish_planes), and
 //     the block's barrier at the next chunk publishes them.
+//
+// Precision modes (template parameter MODE; render/mirror.py's table), as kernel B2
+// takes them: B5f's alphas and in-chunk factors in the same mode, and under every mode
+// but float32 the products' operands rounded to bf16: the cotangent g once as it is
+// loaded (so the suffix total comes from it too), the colours in dL/da's c . g, and dq,
+// d0, d1 and w in the nine pixel sums.  The running sum of w (c . g) keeps float32
+// colours and w, so each suffix stays the difference of two sums of the same terms.
 #include "replay.cuh"
 
 namespace {
@@ -57,9 +64,11 @@ namespace {
 using gsvc::Pixels;
 using gsvc::Planes;
 using gsvc::Stage;
+using gsvc::bf16_round;
 using gsvc::cp_async_commit;
 using gsvc::cp_async_wait_all;
 using gsvc::finish_planes;
+using gsvc::kGradBf16;
 using gsvc::kMaxChunk;
 using gsvc::kMaxThreads;
 using gsvc::kMaxWarps;
@@ -69,7 +78,7 @@ using gsvc::opt_in_smem;
 using gsvc::replay_chunk;
 using gsvc::stage_planes;
 
-template <int PPT>
+template <int PPT, int MODE>
 __global__ void __launch_bounds__(kMaxThreads, 2)
 tile_bwd_kernel(Planes pl, const int* __restrict__ counts, const float* __restrict__ out4,
                 const float* __restrict__ tchk, const float* __restrict__ gout,
@@ -105,9 +114,11 @@ tile_bwd_kernel(Planes pl, const int* __restrict__ counts, const float* __restri
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
     const int lin = threadIdx.x + k * blockDim.x;
-    px.g[k][0] = go[lin];
-    px.g[k][1] = go[p_pix + lin];
-    px.g[k][2] = go[2 * p_pix + lin];
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const float gq = go[q * p_pix + lin];
+      px.g[k][q] = (MODE & kGradBf16) ? bf16_round(gq) : gq;
+    }
     px.s[k] = tc[n_chunks * p_pix + lin] * go[3 * p_pix + lin] + px.g[k][0] * o4[lin] +
               px.g[k][1] * o4[p_pix + lin] + px.g[k][2] * o4[2 * p_pix + lin];
     px.pre[k] = 0.0f;
@@ -141,7 +152,9 @@ tile_bwd_kernel(Planes pl, const int* __restrict__ counts, const float* __restri
     const Stage& s = st[b];
     const int n = real(c);
     const int n_walked =
-        __any_sync(0xffffffffu, live) ? replay_chunk(s, n, false, px, my_red, chunk) : 0;
+        __any_sync(0xffffffffu, live)
+            ? replay_chunk<PPT, MODE>(s, n, false, px, my_red, chunk)
+            : 0;
     if ((threadIdx.x & 31) == 0) walked[warp] = n_walked;
     __syncthreads();
 
@@ -186,6 +199,29 @@ tile_bwd_kernel(Planes pl, const int* __restrict__ counts, const float* __restri
   }
 }
 
+template <int MODE>
+cudaError_t launch(int ppt, int n_rows, int threads, size_t smem, cudaStream_t st,
+                   const Planes& pl, const int* counts, const float* out4,
+                   const float* tchk, const float* gout, float* grads, int n_tiles,
+                   int n_tiles_x, int tile_w, int cap, int chunk) {
+  cudaError_t err;
+#define GSVC_TILE_BWD_LAUNCH(P)                                                        \
+  err = opt_in_smem(tile_bwd_kernel<P, MODE>, smem);                                   \
+  if (err != cudaSuccess) return err;                                                  \
+  tile_bwd_kernel<P, MODE><<<n_rows, threads, smem, st>>>(                             \
+      pl, counts, out4, tchk, gout, grads, n_tiles, n_tiles_x, tile_w, cap, chunk)
+  switch (ppt) {
+    case 1: GSVC_TILE_BWD_LAUNCH(1); break;
+    case 2: GSVC_TILE_BWD_LAUNCH(2); break;
+    case 4: GSVC_TILE_BWD_LAUNCH(4); break;
+    case 8: GSVC_TILE_BWD_LAUNCH(8); break;
+    case 16: GSVC_TILE_BWD_LAUNCH(16); break;
+    default: return cudaErrorInvalidValue;
+  }
+#undef GSVC_TILE_BWD_LAUNCH
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches one block per plane row on `stream`: n_rows blocks of `threads` threads
@@ -193,13 +229,15 @@ tile_bwd_kernel(Planes pl, const int* __restrict__ counts, const float* __restri
 // of nine device pointers to [n_rows, cap] f32 planes (the rows kernel B5f
 // composited); counts [n_rows] i32, out4 [n_rows, 4, P] f32 (B5f's output), tchk
 // [n_rows, cap / chunk + 1, P] f32, gout [n_rows, 4, P] f32 and grads [n_rows, 9, cap]
-// f32 are device pointers; P = threads * ppt = tile_h * tile_w.  `bg` is unused: out4
-// holds it.  Returns cudaGetLastError() after the launch (0 on success).
+// f32 are device pointers; P = threads * ppt = tile_h * tile_w.  `mode` is
+// render/bidir.py check_precision's bits: 0 (float32), kGradBf16 alone (bf16x2) or with
+// kAlphaBf16 and/or kTransBf16; any other value is refused.  `bg` is unused: out4 holds
+// it.  Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int tile_backward(const float* const* planes, const int* counts,
                              const float* out4, const float* tchk, const float* gout,
                              float* grads, int n_rows, int n_tiles, int n_tiles_x,
-                             int tile_w, int cap, int chunk, int threads, int ppt, float bg,
-                             void* stream) {
+                             int tile_w, int cap, int chunk, int threads, int ppt,
+                             int mode, float bg, void* stream) {
   if (chunk <= 0 || chunk > kMaxChunk || cap % chunk != 0 || threads < 32 ||
       threads > kMaxThreads || threads % 32 != 0 || tile_w <= 0 || threads % tile_w != 0 ||
       n_tiles <= 0)
@@ -209,20 +247,9 @@ extern "C" int tile_backward(const float* const* planes, const int* counts,
   for (int i = 0; i < 9; ++i) pl.p[i] = planes[i];
   const size_t smem = static_cast<size_t>(threads / 32) * kSums * chunk * sizeof(float);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-#define GSVC_TILE_BWD_LAUNCH(P)                                                          \
-  err = opt_in_smem(tile_bwd_kernel<P>, smem);                                           \
-  if (err != cudaSuccess) return static_cast<int>(err);                                  \
-  tile_bwd_kernel<P><<<n_rows, threads, smem, st>>>(pl, counts, out4, tchk, gout, grads, \
-                                                    n_tiles, n_tiles_x, tile_w, cap, chunk)
-  switch (ppt) {
-    case 1: GSVC_TILE_BWD_LAUNCH(1); break;
-    case 2: GSVC_TILE_BWD_LAUNCH(2); break;
-    case 4: GSVC_TILE_BWD_LAUNCH(4); break;
-    case 8: GSVC_TILE_BWD_LAUNCH(8); break;
-    case 16: GSVC_TILE_BWD_LAUNCH(16); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef GSVC_TILE_BWD_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(gsvc::backward_mode(mode, [&](auto m) {
+    return launch<decltype(m)::value>(ppt, n_rows, threads, smem, st, pl, counts, out4,
+                                      tchk, gout, grads, n_tiles, n_tiles_x, tile_w, cap,
+                                      chunk);
+  }));
 }

@@ -39,24 +39,35 @@
 // the carry multiplies by the unmasked chunk product, and a copy contributes only where
 // t_before >= T_EPS, as on the TPU.  Each block writes only its own rows of out and
 // t_chk.
+//
+// Precision modes (template parameter MODE; render/mirror.py's table), as kernel B1
+// takes them: in compute_dtype "bfloat16" a thread evaluates the alphas of two rows of
+// its column at once in __nv_bfloat162 lanes (replay.cuh alpha_at / alpha_col2, bit for
+// bit the plain version's bf16 alpha); in matmul_dtype "bfloat16" each copy's in-chunk
+// factor is exp(bf16(log1p(-a))) beside the chunk's float32 product of (1 - a), which
+// carries T to the next chunk and into t_chk.  MODE 0 is the float32 kernel.
 #include "replay.cuh"
 
 namespace {
 
+using gsvc::Alpha;
 using gsvc::Column;
+using gsvc::ColumnBf16;
 using gsvc::Planes;
 using gsvc::Stage;
-using gsvc::alpha_col;
-using gsvc::column_at;
+using gsvc::alpha_at;
+using gsvc::column_mode;
 using gsvc::cp_async_commit;
 using gsvc::cp_async_wait_all;
 using gsvc::finish_planes;
 using gsvc::kMaxChunk;
 using gsvc::kMaxThreads;
 using gsvc::kTEps;
+using gsvc::kTransBf16;
 using gsvc::stage_planes;
+using gsvc::trans_factor;
 
-template <int PPT>
+template <int PPT, int MODE>
 __global__ void __launch_bounds__(kMaxThreads)
 tile_fwd_kernel(Planes pl, const int* __restrict__ counts, float* __restrict__ out,
                 float* __restrict__ tchk, int n_tiles, int n_tiles_x, int tile_w, int cap,
@@ -113,14 +124,18 @@ tile_fwd_kernel(Planes pl, const int* __restrict__ counts, float* __restrict__ o
 
     const Stage& S = st[s];
     const int n = real(c);
-    float e[PPT];
+    // e: the in-chunk product of the copies' factors; pm: the chunk's float32
+    // product of (1 - a), the same as e but in matmul_dtype "bfloat16"
+    float e[PPT], pm[PPT];
 #pragma unroll
-    for (int k = 0; k < PPT; ++k) e[k] = 1.0f;
+    for (int k = 0; k < PPT; ++k) e[k] = pm[k] = 1.0f;
     for (int j = 0; j < n; ++j) {
-      const Column cl = column_at(S, j, x);
+      const ColumnBf16 cm = column_mode<MODE>(S, j, x);
+      const Column& cl = cm.f;
+      Alpha next;
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
-        const float a = alpha_col(cl, ys[k]).a;
+        const float a = alpha_at<MODE>(cm, ys, k, next).a;
         const float tb = t[k] * e[k];
         if (tb >= kTEps) {
           const float w = a * tb;
@@ -128,11 +143,12 @@ tile_fwd_kernel(Planes pl, const int* __restrict__ counts, float* __restrict__ o
           acc[k][1] += w * cl.g;
           acc[k][2] += w * cl.b;
         }
-        e[k] *= 1.0f - a;
+        e[k] *= trans_factor<MODE>(a);
+        if (MODE & kTransBf16) pm[k] *= 1.0f - a;
       }
     }
 #pragma unroll
-    for (int k = 0; k < PPT; ++k) t[k] *= e[k];
+    for (int k = 0; k < PPT; ++k) t[k] *= (MODE & kTransBf16) ? pm[k] : e[k];
     cp_async_wait_all();
     if (c + 1 < n_used) finish_planes(st[s ^ 1], real(c + 1), cx, cy);
   }
@@ -149,17 +165,38 @@ tile_fwd_kernel(Planes pl, const int* __restrict__ counts, float* __restrict__ o
   }
 }
 
+template <int MODE>
+cudaError_t launch(int ppt, int n_rows, int threads, cudaStream_t st, const Planes& pl,
+                   const int* counts, float* out, float* tchk, int n_tiles, int n_tiles_x,
+                   int tile_w, int cap, int chunk, float bg) {
+#define GSVC_TILE_FWD_LAUNCH(P)                                                          \
+  tile_fwd_kernel<P, MODE><<<n_rows, threads, 0, st>>>(pl, counts, out, tchk, n_tiles,  \
+                                                       n_tiles_x, tile_w, cap, chunk, bg)
+  switch (ppt) {
+    case 1: GSVC_TILE_FWD_LAUNCH(1); break;
+    case 2: GSVC_TILE_FWD_LAUNCH(2); break;
+    case 4: GSVC_TILE_FWD_LAUNCH(4); break;
+    case 8: GSVC_TILE_FWD_LAUNCH(8); break;
+    case 16: GSVC_TILE_FWD_LAUNCH(16); break;
+    default: return cudaErrorInvalidValue;
+  }
+#undef GSVC_TILE_FWD_LAUNCH
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches one block per plane row on `stream`: n_rows blocks of `threads` threads (a
 // multiple of tile_w) with `ppt` pixels each.  planes is a host array of nine device
 // pointers to [n_rows, cap] f32 planes; counts [n_rows] i32, out [n_rows, 4, P] f32 and
 // tchk [n_rows, cap / chunk + 1, P] f32 (or null: no checkpoints) are device pointers,
-// P = threads * ppt = tile_h * tile_w.  Returns cudaGetLastError() after the launch
-// (0 on success).
+// P = threads * ppt = tile_h * tile_w.  `mode` is render/bidir.py check_precision's
+// kAlphaBf16 and kTransBf16 bits (0: float32; a forward under bf16x2 is the float32
+// one); any other value is refused.  Returns cudaGetLastError() after the launch (0 on
+// success).
 extern "C" int tile_forward(const float* const* planes, const int* counts, float* out,
                             float* tchk, int n_rows, int n_tiles, int n_tiles_x,
-                            int tile_w, int cap, int chunk, int threads, int ppt,
+                            int tile_w, int cap, int chunk, int threads, int ppt, int mode,
                             float bg, void* stream) {
   if (chunk <= 0 || chunk > kMaxChunk || cap % chunk != 0 || threads <= 0 ||
       threads > kMaxThreads || tile_w <= 0 || threads % tile_w != 0 || n_tiles <= 0)
@@ -168,17 +205,8 @@ extern "C" int tile_forward(const float* const* planes, const int* counts, float
   Planes pl;
   for (int i = 0; i < 9; ++i) pl.p[i] = planes[i];
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define GSVC_TILE_FWD_LAUNCH(P)                                                     \
-  tile_fwd_kernel<P><<<n_rows, threads, 0, st>>>(pl, counts, out, tchk, n_tiles,   \
-                                                 n_tiles_x, tile_w, cap, chunk, bg)
-  switch (ppt) {
-    case 1: GSVC_TILE_FWD_LAUNCH(1); break;
-    case 2: GSVC_TILE_FWD_LAUNCH(2); break;
-    case 4: GSVC_TILE_FWD_LAUNCH(4); break;
-    case 8: GSVC_TILE_FWD_LAUNCH(8); break;
-    case 16: GSVC_TILE_FWD_LAUNCH(16); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef GSVC_TILE_FWD_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(gsvc::forward_mode(mode, [&](auto m) {
+    return launch<decltype(m)::value>(ppt, n_rows, threads, st, pl, counts, out, tchk,
+                                      n_tiles, n_tiles_x, tile_w, cap, chunk, bg);
+  }));
 }

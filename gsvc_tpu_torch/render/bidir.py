@@ -96,15 +96,12 @@ def _check_inputs(settings: RasterSettings, attrs, tile_lists, counts):
 COMPUTE_DTYPES = ("float32", "bfloat16")
 MATMUL_DTYPES = ("float32", "bf16x2", "bfloat16")
 ALPHA_BF16, TRANS_BF16, GRAD_BF16 = 1, 2, 4
-# the kernels that take every mode; the others composite in float32 only
-PRECISION_KERNELS = ("B1/B2", "B4")
 
 
-def check_precision(settings: RasterSettings, kernels: str) -> int:
-    """The mode bits of ``settings`` for ``kernels`` ("B1/B2", "B4",
-    "B5f/B5b" or "B6f/B6b").  Every known combination runs through
-    B1/B2 and B4; B5f/B5b and B6f/B6b take float32 only.  An unknown
-    value raises everywhere."""
+def check_precision(settings: RasterSettings) -> int:
+    """The mode bits of ``settings``.  Every known combination runs
+    through every composite (B1/B2, B4, B5f/B5b, B6f/B6b); an unknown
+    value raises."""
     cd, md = settings.compute_dtype, settings.matmul_dtype
     if cd not in COMPUTE_DTYPES:
         raise ValueError(f"unknown compute_dtype {cd!r}; expected one of "
@@ -116,12 +113,14 @@ def check_precision(settings: RasterSettings, kernels: str) -> int:
             | (TRANS_BF16 if md == "bfloat16" else 0))
     if mode or md != "float32":
         mode |= GRAD_BF16
-    if mode and kernels not in PRECISION_KERNELS:
-        raise ValueError(
-            f"kernels {kernels} composite in float32 only: compute_dtype "
-            f"{cd!r} / matmul_dtype {md!r} run through B1/B2 and B4 "
-            f"(ROADMAP.md §B, precision modes for B5f/B5b, then B6f/B6b)")
     return mode
+
+
+def forward_precision(settings: RasterSettings) -> int:
+    """The mode bits a forward composite takes (B1, B4, B5f, B6f): the
+    alpha and in-chunk transmittance bits of ``check_precision`` (a
+    forward under bf16x2 is the float32 one)."""
+    return check_precision(settings) & (ALPHA_BF16 | TRANS_BF16)
 
 
 def alpha_raw(r, d0, d1, mode: int):
@@ -227,7 +226,7 @@ def bidir_out4_cuda(settings: RasterSettings, attrs, tile_lists, counts,
     (+ bg), row 3 the total transmittance.  A launch the card refuses
     raises, as does a mode the kernel does not take: it never falls back
     to float32."""
-    mode = check_precision(settings, "B4")
+    mode = forward_precision(settings)
     _check_inputs(settings, attrs, tile_lists, counts)
     for name, t in (("attrs", attrs), ("tile_lists", tile_lists),
                     ("counts", counts)):
@@ -246,7 +245,7 @@ def bidir_out4_cuda(settings: RasterSettings, attrs, tile_lists, counts,
             attrs.data_ptr(), tile_lists.data_ptr(), counts.data_ptr(),
             order.data_ptr(), out4.data_ptr(), f_n, m, settings.n_tiles,
             settings.n_tiles_x, settings.tile_w, settings.gaussian_cap,
-            settings.chunk, cluster, threads, ppt, mode & ~GRAD_BF16,
+            settings.chunk, cluster, threads, ppt, mode,
             float(settings.bg), stream)
     if err != 0:
         raise RuntimeError(f"bidir_composite launch of {cluster} CTAs a "
@@ -265,7 +264,7 @@ def bidir_composite_attrs(settings: RasterSettings, attrs, tile_lists,
     ``bidir_composite_attrs.launches``); CPU tensors take the plain
     version; any other device raises.  Both take the settings' precision
     modes (``check_precision``)."""
-    check_precision(settings, "B4")
+    check_precision(settings)
     if attrs.is_cuda:
         out4 = bidir_out4_cuda(settings, attrs, tile_lists, counts)
         bidir_composite_attrs.launches += 1
@@ -298,7 +297,7 @@ def bidir_out4_plain(settings: RasterSettings, attrs, tile_lists, counts):
     the alpha (``alpha_raw``) and each copy's in-chunk factor
     (``trans_factor``) of the front product and the back suffix product;
     the chunk totals stay float32."""
-    mode = check_precision(settings, "B4")
+    mode = check_precision(settings)
     _check_inputs(settings, attrs, tile_lists, counts)
     f_n, m, _ = attrs.shape
     t_n, cap, chunk = settings.n_tiles, settings.gaussian_cap, settings.chunk

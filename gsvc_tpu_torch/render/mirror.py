@@ -38,9 +38,10 @@ arithmetic.  (``_chunked_row_scatter`` is a TPU memory workaround and is
 not carried over.)
 
 Precision modes (``RasterSettings.compute_dtype`` / ``matmul_dtype``; the
-JAX package's ``_chunk_alpha`` and ``_matmul_fns``), in B1/B2 here and in
-B4 (``render/bidir.py``), kernels and plain versions alike; B5f/B5b and
-B6f/B6b raise under any but float32 (``check_precision``):
+JAX package's ``_chunk_alpha`` and ``_matmul_fns``), in every composite —
+B1/B2 here, B4 (``render/bidir.py``), B5f/B5b (``render/tile.py``) and
+B6f/B6b (``render/stream.py``) — kernels and plain versions alike
+(``check_precision``; B4 has no backward):
 
 | setting | alpha | in-chunk transmittance before a copy | backward products (gc, suffix terms, moments, dcol) |
 |---|---|---|---|
@@ -58,12 +59,13 @@ before ``dcol = sum w g``, and dq, d0, d1 before the six moment sums
 float32).  The port takes its moments about the gaussian's mean where JAX
 takes them in the tile basis ``[1, x, y, x^2, xy, y^2]``, so their rounding
 error differs from JAX's in pattern but not in order.  The suffix terms
-``w (c . g)`` keep the float32 colours and w: kernel B2 forms each suffix as
-the total above minus a running sum of them, and with rounded terms that
-difference would carry the rounding of every term walked so far, past
-B2's tolerance of the plain version (tests/test_torch_precision.py
-``test_b2_suffix_terms_keep_float32``); with them, the port's gradients
-stay within JAX's bands of JAX's same mode (the same file).
+``w (c . g)`` keep the float32 colours and w: kernels B2, B5b and B6b form
+each suffix as the total above minus a running sum of them, and with
+rounded terms that difference would carry the rounding of every term
+walked so far, past their tolerance of the plain version
+(tests/test_torch_precision.py ``test_b2_suffix_terms_keep_float32``);
+with them, the port's gradients stay within JAX's bands of JAX's same
+mode (the same file, and tests/test_torch_precision_tile_stream.py).
 ``compute_dtype="bfloat16"`` with ``bf16x2`` is the same function as with
 ``float32``.  The MXU triangular matmul and the hi/lo split are TPU
 workarounds and are not carried over.
@@ -77,8 +79,8 @@ import torch
 
 from gsvc_tpu_torch.build import load
 from gsvc_tpu_torch.render.bidir import (
-    ALPHA_BF16, GRAD_BF16, TRANS_BF16, _check_inputs, alpha_raw,
-    check_precision, column_shape, trans_factor,
+    GRAD_BF16, TRANS_BF16, _check_inputs, alpha_raw, check_precision,
+    column_shape, forward_precision, trans_factor,
 )
 from gsvc_tpu_torch.render.splat import (
     ALPHA_MAX, ALPHA_MIN, T_EPS, RasterSettings,
@@ -92,7 +94,7 @@ PLAIN_BATCH = 1024
 def check_inputs(settings: RasterSettings, attrs, tile_lists, counts):
     """Validate the composite's inputs (B4's checks: the precision modes
     and a tile-aligned width); returns F (frames)."""
-    check_precision(settings, "B1/B2")
+    check_precision(settings)
     _check_inputs(settings, attrs, tile_lists, counts)
     return attrs.shape[0]
 
@@ -160,7 +162,7 @@ def mirror_fwd_cuda(settings: RasterSettings, attrs, tile_lists, counts):
             attrs.shape[1],
             (attrs.data_ptr(), tile_lists.data_ptr(), counts.data_ptr(),
              out4.data_ptr(), t_chk.data_ptr()), attrs.device,
-            check_precision(settings, "B1/B2") & (ALPHA_BF16 | TRANS_BF16))
+            forward_precision(settings))
     return out4, t_chk
 
 
@@ -198,7 +200,7 @@ def mirror_bwd_cuda(settings: RasterSettings, attrs, tile_lists, counts,
             (attrs.data_ptr(), tile_lists.data_ptr(), counts.data_ptr(),
              out4.data_ptr(), t_chk.data_ptr(), g_out.data_ptr(),
              grads.data_ptr()), attrs.device,
-            check_precision(settings, "B1/B2"))
+            check_precision(settings))
     return grads
 
 
@@ -337,10 +339,11 @@ def mirror_composite_attrs(settings: RasterSettings, attrs, tile_lists,
 class _Tiles:
     """Per-step geometry and attribute rows of a batch of composite steps
     (one tile of one view each).  Shared by the plain versions of the
-    mirror composite (B1/B2) and of the single-view composite (B5f/B5b,
-    ``render/tile.py``)."""
+    mirror composite (B1/B2), the single-view composite (B5f/B5b,
+    ``render/tile.py``) and the stream composite (B6f/B6b,
+    ``render/stream.py``)."""
 
-    def __init__(self, settings, rows, u, v, cnt, out_row, mode=0):
+    def __init__(self, settings, rows, u, v, cnt, out_row, mode):
         """rows [S, cap, 9] (opacity 0 on padding slots), u [S] the tile
         whose pixels a step composites from, v [S] 1 for a flip step of
         the mirror composite, cnt [S] list lengths, out_row [S] the output
@@ -408,7 +411,7 @@ def _mirror_tiles(settings, attrs, tile_lists, counts, sel):
                                torch.zeros_like(rows[..., 5]))
     return _Tiles(settings, rows, d % t_n, v_all[sel],
                   counts.reshape(-1)[d].long(), out_all[sel],
-                  check_precision(settings, "B1/B2"))
+                  check_precision(settings))
 
 
 def _excl_cumprod(x: torch.Tensor):

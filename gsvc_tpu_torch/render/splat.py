@@ -49,8 +49,8 @@ class RasterSettings:
     ``copy_budget_factor`` > 0 bins the compacted copy stream of at most
     ``m * factor`` copies.  ``compute_dtype`` ("float32", "bfloat16")
     and ``matmul_dtype`` ("float32", "bf16x2", "bfloat16") are the
-    compositing precision modes of kernels B1/B2 and B4 (the table in
-    ``render/mirror.py``); B5f/B5b and B6f/B6b take float32 only."""
+    compositing precision modes of every compositing kernel (the table
+    in ``render/mirror.py``)."""
 
     image_height: int
     image_width: int

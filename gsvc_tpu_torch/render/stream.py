@@ -37,9 +37,13 @@ The plain versions run ``render/mirror.py``'s ``composite_rows`` /
 blocks from ``blk_tile`` / ``blk_cc`` where the kernels take the
 exclusive cumsum of ``nblk``: both stop on the same blocks.  The kernels
 walk a block only up to its live slots (``block_live``), which are a
-prefix of it; the padding after them has opacity 0.  Kernels B6f/B6b
-composite in float32 only: the precision modes that B1/B2 and B4 take
-raise here until they are ported (ROADMAP.md §B).
+prefix of it; the padding after them has opacity 0.  Both kernels and
+both plain versions take the settings' precision modes
+(``compute_dtype`` / ``matmul_dtype``; ``check_precision``, the table in
+``render/mirror.py``), as B1/B2 do: the forward the alpha and the
+in-chunk transmittance bits (a block's factors; the checkpoints and the
+carry between blocks stay the float32 product), the backward every bit.
+A mode the kernel does not take fails its launch, which raises.
 """
 
 from __future__ import annotations
@@ -50,7 +54,9 @@ import torch
 
 from gsvc_tpu_torch.build import load
 from gsvc_tpu_torch.render import mirror
-from gsvc_tpu_torch.render.bidir import check_precision, column_shape
+from gsvc_tpu_torch.render.bidir import (
+    check_precision, column_shape, forward_precision,
+)
 from gsvc_tpu_torch.render.splat import RasterSettings
 
 N_ATTR = 9
@@ -108,8 +114,9 @@ def stream_from_tile_lists(settings: RasterSettings, tile_lists, counts,
 
 def check_stream(settings: RasterSettings, rows, sids, blk_tile, blk_cc,
                  nblk):
-    """Validate the stream composite's inputs; returns (F, B_MAX)."""
-    check_precision(settings, "B6f/B6b")
+    """Validate the stream composite's inputs (the precision modes among
+    them); returns (F, B_MAX)."""
+    check_precision(settings)
     if settings.image_width != settings.n_tiles_x * settings.tile_w:
         raise ValueError(
             f"the stream composite mirrors the tile columns: width "
@@ -184,19 +191,23 @@ def _fn(lib: str, name: str, n_ptrs: int):
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.restype = ci
-        fn.argtypes = [vp] * n_ptrs + [ci] * 8 + [ctypes.c_float, vp]
+        fn.argtypes = [vp] * n_ptrs + [ci] * 9 + [ctypes.c_float, vp]
     return fn
 
 
-def _launch(fn, settings, f_n, b_max, ptrs, device):
+def _launch(fn, settings, f_n, b_max, ptrs, device, mode):
+    """One launch of ``fn`` in precision ``mode`` (``check_precision``'s
+    bits); a mode the kernel does not take fails the launch, which raises:
+    no wrapper falls back to float32."""
     threads, ppt = launch_shape(settings)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*ptrs, f_n, settings.n_tiles, settings.n_tiles_x,
-                 settings.tile_w, settings.chunk, b_max, threads, ppt,
+                 settings.tile_w, settings.chunk, b_max, threads, ppt, mode,
                  float(settings.bg), stream)
     if err != 0:
-        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
+        raise RuntimeError(f"{fn.__name__} launch in mode {mode} failed: "
+                           f"CUDA error {err}")
 
 
 def stream_fwd_cuda(settings: RasterSettings, rows, sids, blk_tile, blk_cc,
@@ -216,7 +227,8 @@ def stream_fwd_cuda(settings: RasterSettings, rows, sids, blk_tile, blk_cc,
     _launch(_fn("stream_fwd", "stream_forward", 6), settings, f_n, b_max,
             (rows.data_ptr(), nblk.data_ptr(), first.data_ptr(),
              nlive.data_ptr(), out4.data_ptr(),
-             t_chk.data_ptr() if save_tchk else None), dev)
+             t_chk.data_ptr() if save_tchk else None), dev,
+            forward_precision(settings))
     return out4, t_chk
 
 
@@ -244,7 +256,7 @@ def stream_bwd_cuda(settings: RasterSettings, rows, sids, blk_tile, blk_cc,
             (rows.data_ptr(), nblk.data_ptr(), first.data_ptr(),
              nlive.data_ptr(), out4.data_ptr(), t_chk.data_ptr(),
              g_out.data_ptr(), grads.data_ptr()),
-            rows.device)
+            rows.device, check_precision(settings))
     return grads
 
 
@@ -416,7 +428,7 @@ def _stream_tiles(settings, rows, first, live, nblk, sel):
     r = rows.T[slot]                                      # [S, cap, 9]
     r = torch.where(in_span[..., None], r, torch.zeros_like(r))
     tl = mirror._Tiles(settings, r, d % settings.n_tiles, v_all[sel],
-                       live[d].long(), out_all[sel])
+                       live[d].long(), out_all[sel], check_precision(settings))
     return tl, slot, in_span
 
 

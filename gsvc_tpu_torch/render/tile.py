@@ -26,9 +26,11 @@ so the backward takes ``out4`` too.  The gradients reach the
 per-gaussian rows (and ``means2d``) through the autograd of the plane
 gather.
 
-Kernels B5f/B5b composite in float32 only: ``compute_dtype`` and
-``matmul_dtype`` other than float32 (which B1/B2 and B4 take,
-``render/mirror.py``) raise here until they are ported (ROADMAP.md §B).
+Both kernels and both plain versions take the settings' precision modes
+(``compute_dtype`` / ``matmul_dtype``; ``check_precision``, the table in
+``render/mirror.py``), as B1/B2 do: the forward the alpha and the
+in-chunk transmittance bits, the backward every bit.  A mode the kernel
+does not take fails its launch, which raises.
 """
 
 from __future__ import annotations
@@ -39,12 +41,15 @@ import torch
 
 from gsvc_tpu_torch.build import load
 from gsvc_tpu_torch.render import mirror
-from gsvc_tpu_torch.render.bidir import check_precision, column_shape
+from gsvc_tpu_torch.render.bidir import (
+    check_precision, column_shape, forward_precision,
+)
 from gsvc_tpu_torch.render.splat import RasterSettings
 
 def check_planes(settings: RasterSettings, planes, counts) -> int:
-    """Validate the composite's inputs; returns the row count V*T."""
-    check_precision(settings, "B5f/B5b")
+    """Validate the composite's inputs (the precision modes among them);
+    returns the row count V*T."""
+    check_precision(settings)
     if len(planes) != 9:
         raise ValueError(f"expected 9 planes, got {len(planes)}")
     n_rows = planes[0].shape[0]
@@ -78,7 +83,7 @@ def _fn(lib: str, name: str, n_ptrs: int):
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.restype = ci
-        fn.argtypes = [ctypes.c_void_p * 9] + [vp] * n_ptrs + [ci] * 8 \
+        fn.argtypes = [ctypes.c_void_p * 9] + [vp] * n_ptrs + [ci] * 9 \
             + [ctypes.c_float, vp]
     return fn
 
@@ -97,15 +102,19 @@ def launch_shape(settings: RasterSettings):
     return column_shape(settings, "B5f/B5b")
 
 
-def _launch(fn, settings, n_rows, ptrs, device):
+def _launch(fn, settings, n_rows, ptrs, device, mode):
+    """One launch of ``fn`` in precision ``mode`` (``check_precision``'s
+    bits); a mode the kernel does not take fails the launch, which raises:
+    no wrapper falls back to float32."""
     threads, ppt = launch_shape(settings)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*ptrs, n_rows, settings.n_tiles, settings.n_tiles_x,
                  settings.tile_w, settings.gaussian_cap, settings.chunk,
-                 threads, ppt, float(settings.bg), stream)
+                 threads, ppt, mode, float(settings.bg), stream)
     if err != 0:
-        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
+        raise RuntimeError(f"{fn.__name__} launch in mode {mode} failed: "
+                           f"CUDA error {err}")
 
 
 def tile_fwd_cuda(settings: RasterSettings, planes, counts,
@@ -124,7 +133,8 @@ def tile_fwd_cuda(settings: RasterSettings, planes, counts,
                         device=dev) if save_tchk else None
     _launch(_fn("tile_fwd", "tile_forward", 3), settings, n_rows,
             (ptrs, counts.data_ptr(), out4.data_ptr(),
-             t_chk.data_ptr() if save_tchk else None), dev)
+             t_chk.data_ptr() if save_tchk else None), dev,
+            forward_precision(settings))
     return out4, t_chk
 
 
@@ -163,7 +173,8 @@ def tile_bwd_cuda(settings: RasterSettings, planes, counts, out4, t_chk,
                         dtype=torch.float32, device=dev)
     _launch(_fn("tile_bwd", "tile_backward", 5), settings, n_rows,
             (ptrs, counts.data_ptr(), out4.data_ptr(), t_chk.data_ptr(),
-             g_out.data_ptr(), grads.data_ptr()), dev)
+             g_out.data_ptr(), grads.data_ptr()), dev,
+            check_precision(settings))
     return grads
 
 
@@ -264,7 +275,8 @@ def _plane_tiles(settings, planes, counts, sel):
     """mirror._Tiles of the rows ``sel`` (single view: no flip steps)."""
     rows = torch.stack([p[sel] for p in planes], dim=-1)   # [S, cap, 9]
     return mirror._Tiles(settings, rows, sel % settings.n_tiles,
-                         torch.zeros_like(sel), counts[sel].long(), sel)
+                         torch.zeros_like(sel), counts[sel].long(), sel,
+                         check_precision(settings))
 
 
 def tile_fwd_plain(settings: RasterSettings, planes, counts):

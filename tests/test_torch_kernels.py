@@ -24,17 +24,20 @@ B4 runs one thread-block cluster per tile, heaviest tiles first: every
 cluster size its C entry takes gives the same bits, and a cluster the
 card refuses raises.
 
-Precision modes (render/mirror.py's table): B1, B2 and B4 are held to
-their plain versions in every mode (ALL_MODES) at the tolerances above.
-In bf16 modes B2 may differ more than in float32 (a summation-order
-difference in its last float32 bits can move a bf16-rounded dq, d or w
-by one bf16 step), still inside 2e-3, as tests/test_torch_precision.py's
-CPU emulation of B2 shows.
-Tiles of one copy each compare bit for bit in every mode: there the
-output is the alpha times the colour, so the kernels' alphas, the bf16
-evaluation of two rows a packed operation included, are the plain
-versions'.  B5f/B5b and B6f/B6b raise under every mode but float32, and
-a value that is no mode raises in every composite.
+Precision modes (render/mirror.py's table): every compositing kernel
+(B1, B2, B4, B5f, B5b, B6f, B6b) is held to its plain version in every
+mode (ALL_MODES) at the tolerances above.  In bf16 modes the backward
+kernels may differ more than in float32 (a summation-order difference in
+their last float32 bits can move a bf16-rounded dq, d or w by one bf16
+step), still inside 2e-3, as the CPU emulations of their replay in
+tests/test_torch_precision.py and test_torch_precision_tile_stream.py
+show.  Tiles of one copy each compare bit for bit in every mode for the
+forward kernels: there the output is the alpha times the colour, so the
+kernels' alphas, the bf16 evaluation of two rows a packed operation
+included, are the plain versions'.  B5f's output equals B1's forward
+view, and B6f's equals B1's, bit for bit in every mode; a mode that a
+kernel's C entry does not take fails its launch, which raises; a value
+that is no mode raises in every composite.
 
 Single-view kernels B5f/B5b (widths that are not a multiple of tile_w):
 the forward and checkpoints to 2 T_EPS, the gradients to 2e-3 of each
@@ -402,15 +405,17 @@ def _live_blocks(bins, chunk):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ALL_MODES, ids="/".join)
 @pytest.mark.parametrize("shape", ["small", "train"])
 @pytest.mark.parametrize("opacity_hi", [0.1, 0.99])
-def test_stream_kernels_match_plain(shape, opacity_hi):
+def test_stream_kernels_match_plain(shape, opacity_hi, mode):
     """B6f (with and without checkpoints) and B6b against their plain
-    versions: empty tiles (one block of dead slots), full lists, partial
-    last blocks, saturated tiles and dead tail blocks."""
+    versions in every precision mode: empty tiles (one block of dead
+    slots), full lists, partial last blocks, saturated tiles and dead
+    tail blocks."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    settings = SMALL if shape == "small" else TRAIN
+    settings = _mode(SMALL if shape == "small" else TRAIN, mode)
     attrs, bins = _stream(settings, 11, opacity_hi)
     rows = stream.stream_rows(attrs, bins[0])
     before = stream.stream_forward.launches
@@ -505,16 +510,19 @@ def test_stream_kernels_raise_without_their_library(monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ALL_MODES, ids="/".join)
 @pytest.mark.parametrize("shape", ["small", "train", "decode"])
 @pytest.mark.parametrize("opacity_hi", [0.1, 0.99])
-def test_stream_forward_equals_b1_bit_for_bit(shape, opacity_hi):
+def test_stream_forward_equals_b1_bit_for_bit(shape, opacity_hi, mode):
     """B6f composites the same copies as B1, block for chunk, with the
     same column alpha, the same running products and the same stops, and
     ends a block's walk where B1's padding slots (zero alpha) begin: its
-    output, and its checkpoint-free launch, equal B1's bit for bit."""
+    output, and its checkpoint-free launch, equal B1's bit for bit, in
+    every precision mode."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    settings = {"small": SMALL, "train": TRAIN, "decode": DECODE}[shape]
+    settings = _mode({"small": SMALL, "train": TRAIN,
+                      "decode": DECODE}[shape], mode)
     attrs, lists, counts = _frames(settings, 21, opacity_hi)
     nblk = torch.clamp((counts + settings.chunk - 1) // settings.chunk,
                        min=1)
@@ -603,12 +611,17 @@ def _planes(settings, seed, opacity_hi, n_views=4):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ALL_MODES, ids="/".join)
 @pytest.mark.parametrize("shape", ["small", "train"])
 @pytest.mark.parametrize("opacity_hi", [0.1, 0.99])
-def test_tile_kernels_match_plain(shape, opacity_hi):
+def test_tile_kernels_match_plain(shape, opacity_hi, mode):
+    """B5f (with and without checkpoints) and B5b against their plain
+    versions in every precision mode, at widths that are not a multiple
+    of tile_w."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    settings = SMALL_NARROW if shape == "small" else TRAIN_NARROW
+    settings = _mode(SMALL_NARROW if shape == "small" else TRAIN_NARROW,
+                     mode)
     planes, counts = _planes(settings, 5, opacity_hi)
     before = tile.tile_forward.launches
     out_k, chk_k = tile.tile_forward(settings, planes, counts)
@@ -1394,18 +1407,20 @@ def test_slab_composite_over_gloo_ranks_matches_one_rank(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# Precision modes of B1, B2 and B4 (render/mirror.py's table); B5f/B5b and
-# B6f/B6b refuse them
+# Precision modes of every compositing kernel (render/mirror.py's table)
 # ---------------------------------------------------------------------------
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ALL_MODES, ids="/".join)
 @pytest.mark.parametrize("shape", ["small", "train", "decode"])
 def test_single_copy_tiles_equal_plain_bit_for_bit(mode, shape):
-    """Tiles of one copy each: B1's and B4's outputs are the alpha times
-    the colour and 1 - alpha, with no sum to reorder, so kernel and plain
-    version agree bit for bit — the alpha of every pixel, the bf16
-    evaluation (two rows a packed op) included."""
+    """Tiles of one copy each: the forward kernels' outputs (B1, B4, B5f
+    and B6f) are the alpha times the colour and 1 - alpha, with no sum to
+    reorder, so kernel and plain version agree bit for bit — the alpha of
+    every pixel, the bf16 evaluation (two rows a packed op) included.
+    The backward kernels B5b and B6b, whose copy sums its pixels in
+    another order, are held to their plain versions on the same tiles at
+    2e-3 of each attribute's largest gradient."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     settings = {"small": SMALL, "train": TRAIN, "decode": DECODE}[shape]
@@ -1426,27 +1441,124 @@ def test_single_copy_tiles_equal_plain_bit_for_bit(mode, shape):
     assert torch.equal(out_k, out_p)
     assert torch.equal(b4_k, b4_p)
 
+    planes = tuple(p.contiguous()
+                   for p in gather_tile_planes_rows(attrs[0], lists[0]))
+    cnt = counts.reshape(-1).contiguous()
+    out5_k, chk5_k = tile.tile_fwd_cuda(settings, planes, cnt)
+    out5_p, chk5_p, _ = tile.tile_fwd_plain(settings, planes, cnt)
+    g = torch.randn(out5_p.shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(8))
+    gr5_k = tile.tile_bwd_cuda(settings, planes, cnt, out5_p, chk5_p, g)
+    gr5_p, _ = tile.tile_bwd_plain(settings, planes, cnt, chk5_p, g)
+    bins = stream.stream_from_tile_lists(settings, lists, counts,
+                                         settings.n_tiles + 2)
+    rows = stream.stream_rows(attrs, bins[0])
+    out6_k, chk6_k = stream.stream_fwd_cuda(settings, rows, *bins)
+    out6_p, chk6_p, _ = stream.stream_fwd_plain(settings, rows, *bins)
+    g6 = torch.randn(out6_p.shape, device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(9))
+    gr6_k = stream.stream_bwd_cuda(settings, rows, *bins, out6_p, chk6_p,
+                                   g6)
+    gr6_p, _ = stream.stream_bwd_plain(settings, rows, *bins, out6_p,
+                                       chk6_p, g6)
+    torch.cuda.synchronize()
+    assert torch.equal(out5_k, out5_p) and torch.equal(chk5_k, chk5_p)
+    assert torch.equal(out6_k, out6_p) and torch.equal(chk6_k, chk6_p)
+    _check_bwd(gr5_k, gr5_p)
+    for v in range(2):
+        _check_bwd(gr6_k[v].T[:, :, None], gr6_p[v].T[:, :, None])
+
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", MODES, ids="/".join)
-def test_other_composites_refuse_precision_modes(mode):
-    """B5f/B5b and B6f/B6b composite in float32 only: each wrapper raises
-    under every other mode, on the card as on the CPU."""
+@pytest.mark.parametrize("mode", ALL_MODES, ids="/".join)
+@pytest.mark.parametrize("opacity_hi", [0.1, 0.99])
+def test_tile_and_stream_forwards_equal_b1_in_every_mode(mode, opacity_hi):
+    """On the same copies at the training tiles, in every precision mode:
+    B5f's out4 and t_chk over the forward views' planes equal B1's
+    forward-view rows bit for bit, and B6f's out4 over the copy stream
+    of the same lists equals B1's (both views) bit for bit — the same
+    column alpha (two rows a packed bf16 operation in compute_dtype
+    "bfloat16"), the same in-chunk factors and float32 carry in
+    matmul_dtype "bfloat16", the same stops."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    settings = _mode(SMALL_NARROW, mode)
-    planes, counts = _planes(SMALL_NARROW, 5, 0.99)
-    for call in (lambda: tile.tile_forward(settings, planes, counts),
-                 lambda: tile.tile_composite(settings, planes, counts)):
-        with pytest.raises(ValueError, match="B5f/B5b composite in float32"):
-            call()
-    attrs, bins = _stream(SMALL, 2, 0.99)
-    ssettings = _mode(SMALL, mode)
+    settings = _mode(TRAIN, mode)
+    attrs, lists, counts = _frames(settings, 23, opacity_hi)
+    views = [gather_tile_planes_rows(attrs[f], lists[f])
+             for f in range(attrs.shape[0])]
+    planes = tuple(torch.cat([p[i] for p in views]).contiguous()
+                   for i in range(9))
+    cnt = counts.reshape(-1).contiguous()
+    nblk = torch.clamp((counts + settings.chunk - 1) // settings.chunk,
+                       min=1)
+    bins = stream.stream_from_tile_lists(settings, lists, counts,
+                                         int(nblk.sum(dim=1).max()) + 3)
     rows = stream.stream_rows(attrs, bins[0])
-    with pytest.raises(ValueError, match="B6f/B6b composite in float32"):
-        stream.stream_forward(ssettings, rows, *bins)
-    with pytest.raises(ValueError, match="B6f/B6b composite in float32"):
-        stream.stream_composite_attrs(ssettings, attrs, *bins)
+    out_1, chk_1 = mirror.mirror_fwd_cuda(settings, attrs, lists, counts)
+    out_5, chk_5 = tile.tile_fwd_cuda(settings, planes, cnt)
+    out_6, _ = stream.stream_fwd_cuda(settings, rows, *bins)
+    torch.cuda.synchronize()
+    t_n = settings.n_tiles
+    fwd = (torch.arange(out_1.shape[0], device="cuda") // t_n) % 2 == 0
+    assert float(out_1[:, 3].min()) < T_EPS
+    assert torch.equal(out_5, out_1[fwd]) and torch.equal(chk_5, chk_1[fwd])
+    assert torch.equal(out_6, out_1)
+
+
+@pytest.mark.cuda
+def test_tile_and_stream_launches_refuse_other_modes():
+    """Each C entry takes its kernel's set of modes (forwards: the alpha
+    and transmittance bits, 0-3; backwards: 0 and the gradient bit with
+    any of the others) and refuses the rest: the launcher raises, nothing
+    runs in float32 in its place."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    planes, counts = _planes(SMALL_NARROW, 5, 0.99, n_views=2)
+    out4, t_chk = tile.tile_fwd_cuda(SMALL_NARROW, planes, counts)
+    g = torch.zeros_like(out4)
+    grads = torch.empty((counts.numel(), 9, SMALL_NARROW.gaussian_cap),
+                        device="cuda")
+    ptrs = tile._plane_ptrs(planes)
+    attrs, bins = _stream(SMALL, 2, 0.99)
+    rows = stream.stream_rows(attrs, bins[0])
+    s_out, s_chk = stream.stream_fwd_cuda(SMALL, rows, *bins)
+    b_max = bins[0].shape[1] // SMALL.chunk
+    first = stream.block_starts(SMALL, bins[3], b_max)
+    nlive = stream.block_live(SMALL, bins[0])
+    s_g = torch.zeros_like(s_out)
+    s_grads = torch.zeros((2, 9, rows.shape[1]), device="cuda")
+    launches = {
+        "tile_forward": lambda mode: tile._launch(
+            tile._fn("tile_fwd", "tile_forward", 3), SMALL_NARROW,
+            counts.numel(), (ptrs, counts.data_ptr(), out4.data_ptr(),
+                             t_chk.data_ptr()), out4.device, mode),
+        "tile_backward": lambda mode: tile._launch(
+            tile._fn("tile_bwd", "tile_backward", 5), SMALL_NARROW,
+            counts.numel(), (ptrs, counts.data_ptr(), out4.data_ptr(),
+                             t_chk.data_ptr(), g.data_ptr(),
+                             grads.data_ptr()), out4.device, mode),
+        "stream_forward": lambda mode: stream._launch(
+            stream._fn("stream_fwd", "stream_forward", 6), SMALL, 2, b_max,
+            (rows.data_ptr(), bins[3].data_ptr(), first.data_ptr(),
+             nlive.data_ptr(), s_out.data_ptr(), s_chk.data_ptr()),
+            rows.device, mode),
+        "stream_backward": lambda mode: stream._launch(
+            stream._fn("stream_bwd", "stream_backward", 8), SMALL, 2, b_max,
+            (rows.data_ptr(), bins[3].data_ptr(), first.data_ptr(),
+             nlive.data_ptr(), s_out.data_ptr(), s_chk.data_ptr(),
+             s_g.data_ptr(), s_grads.data_ptr()),
+            rows.device, mode)}
+    takes = {"forward": {0, 1, 2, 3}, "backward": {0, 4, 5, 6, 7}}
+    for name, launch in launches.items():
+        ok = takes[name.split("_")[1]]
+        for mode in range(9):
+            if mode in ok:
+                launch(mode)
+            else:
+                with pytest.raises(RuntimeError, match=f"{name} launch in "
+                                   f"mode {mode} failed"):
+                    launch(mode)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

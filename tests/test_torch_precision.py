@@ -273,9 +273,8 @@ def test_bf16_alpha_is_jax_expression_bit_for_bit():
 
 
 def test_check_precision():
-    """Every known combination runs through B1/B2 and B4 with its mode
-    bits; B5f/B5b and B6f/B6b refuse all but float32; an unknown value
-    raises everywhere."""
+    """Every known combination runs through every composite (B1/B2, B4,
+    B5f/B5b, B6f/B6b) with its mode bits; an unknown value raises."""
     bits = {("float32", "float32"): 0,
             ("bfloat16", "float32"): ALPHA_BF16 | GRAD_BF16,
             ("float32", "bf16x2"): GRAD_BF16,
@@ -283,45 +282,35 @@ def test_check_precision():
             ("bfloat16", "bfloat16"): ALPHA_BF16 | TRANS_BF16 | GRAD_BF16,
             ("bfloat16", "bf16x2"): ALPHA_BF16 | GRAD_BF16}
     for mode, want in bits.items():
-        s = _with(PSET, mode)
-        for kernels in ("B1/B2", "B4"):
-            assert check_precision(s, kernels) == want
-        for kernels in ("B5f/B5b", "B6f/B6b"):
-            if want:
-                with pytest.raises(ValueError, match="float32 only"):
-                    check_precision(s, kernels)
-            else:
-                assert check_precision(s, kernels) == 0
+        assert check_precision(_with(PSET, mode)) == want
     for field in ("compute_dtype", "matmul_dtype"):
         s = dataclasses.replace(PSET, **{field: "float16"})
-        for kernels in ("B1/B2", "B4", "B5f/B5b", "B6f/B6b"):
-            with pytest.raises(ValueError, match=f"unknown {field}"):
-                check_precision(s, kernels)
+        with pytest.raises(ValueError, match=f"unknown {field}"):
+            check_precision(s)
 
 
-def _replay_emulation(settings, attrs, lists, counts, out4, t_chk, g_out,
-                      round_suffix=False):
-    """Kernel B2's per-pixel algebra (csrc/replay.cuh ``replay_chunk``) in
-    float32 on the CPU, all grid steps at once, in the settings' mode:
+def replay_rows(settings, tl, chk, o4, g4, round_suffix=False):
+    """The replay that kernels B2, B5b and B6b share (csrc/replay.cuh
+    ``replay_chunk``) in float32 on the CPU, for the composite steps of
+    ``tl`` (a ``mirror._Tiles``) with their checkpoints ``chk`` [S,
+    n_chunks + 1, P] (the last the final T), forward outputs ``o4`` and
+    cotangents ``g4`` [S, 4, P], all steps at once, in the tiles' mode:
     the suffix from the colour total (the bf16-rounded cotangent dotted
     with out4) minus a running sum of w (c . g), dL/da's gc from the
     bf16-rounded colours, bf16(dq), bf16(d) and bf16(w) in the sums, the
     mode's transmittance factors.  ``round_suffix`` takes the running
     sum's terms as bf16(w) bf16(c . g) instead, as JAX rounds its suffix
-    terms.  (tests/test_torch_mirror_replay.py emulates the float32
-    walk's warp skips and shows they change no bit.)"""
-    f_n = attrs.shape[0]
-    n_grid = 2 * f_n * settings.n_tiles
-    tl = mirror._mirror_tiles(settings, attrs, lists, counts,
-                              torch.arange(n_grid))
+    terms.  Returns per-step gradients [S, 9, cap].
+    (tests/test_torch_mirror_replay.py emulates the float32 walk's warp
+    skips and shows they change no bit.)"""
     q = mirror._bf16_round if tl.mode & GRAD_BF16 else (lambda x: x)
     chunk, n_chunks = tl.chunk, tl.n_chunks
-    chk, o4, g4 = t_chk[tl.out_row], out4[tl.out_row], g_out[tl.out_row]
+    n_steps = chk.shape[0]
     g3 = q(g4[:, 0:3])
     total = chk[:, n_chunks] * g4[:, 3] + (g3 * o4[:, 0:3]).sum(dim=1)
     pre = torch.zeros_like(total)
-    grads = torch.zeros(n_grid, 9, settings.gaussian_cap)
-    alive = torch.ones(n_grid, dtype=torch.bool)
+    grads = torch.zeros(n_steps, 9, settings.gaussian_cap)
+    alive = torch.ones(n_steps, dtype=torch.bool)
     for p in range(n_chunks):
         alive &= (p < tl.n_used) & (chk[:, p].amax(dim=1) >= T_EPS)
         idx = alive.nonzero().squeeze(1)
@@ -358,6 +347,17 @@ def _replay_emulation(settings, attrs, lists, counts, out4, t_chk, g_out,
         grads[idx[:, None, None], torch.arange(9)[None, :, None],
               slot[:, None, :]] = vals
     return grads
+
+
+def _replay_emulation(settings, attrs, lists, counts, out4, t_chk, g_out,
+                      round_suffix=False):
+    """Kernel B2's replay (``replay_rows``) of every step of the mirror
+    grid, in grid order."""
+    n_grid = 2 * attrs.shape[0] * settings.n_tiles
+    tl = mirror._mirror_tiles(settings, attrs, lists, counts,
+                              torch.arange(n_grid))
+    return replay_rows(settings, tl, t_chk[tl.out_row], out4[tl.out_row],
+                       g_out[tl.out_row], round_suffix)
 
 
 def _b2_case(mode):

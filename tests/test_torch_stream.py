@@ -325,9 +325,9 @@ def test_stream_refuses_bad_inputs():
     frames = [(_scene(40, 0), 0.0)]
     _, _, pattrs, pbins, _ = _stream_inputs(frames, JSET)
     pset = _pset(JSET)
-    with pytest.raises(ValueError, match="float32"):
+    with pytest.raises(ValueError, match="unknown compute_dtype"):
         stream.stream_composite_attrs(
-            dataclasses.replace(pset, compute_dtype="bfloat16"), pattrs,
+            dataclasses.replace(pset, compute_dtype="float16"), pattrs,
             *pbins)
     with pytest.raises(ValueError, match="multiple of tile_w"):
         stream.stream_composite_attrs(
